@@ -21,6 +21,22 @@ Phases, in order (any failure exits non-zero before the result line):
    script writes: every row complete, K1 and K2 launched.
 6. Timings with CUDA events: K1 and K2 against their plain versions at
    the bench shape, and the main path's audio-seconds per second.
+7. K3, K4, K5 (ops/iir.py) and K6 (ops/truepeak_stream.py) against their
+   plain versions on the card: the CPU tests' cases, then each at its
+   configuration's shape (K5 and K6 on a 64-row slice of the library scan
+   at full length). z per group rtol 1e-3 / atol 1e-6 * max|z|, sub-block
+   sums rtol 3e-4 / atol 2e-5, true peak rtol 2e-6 / atol 1e-7, sample
+   peak exact.
+8. The rows-layout engine path in three configurations at full size, each
+   with the launch counts set to 0 just before and read just after:
+   the 1,000-track library scan (rows (2000, 720000) through
+   analyze_batch_native: K5 + K6), one 240 s 48 kHz stereo file through
+   analyze_array (EBU Tech 3341 case 1, -23.0 LUFS: K3) and a 60 s 5.1
+   track at 192 kHz through analyze_array (K4); shapes, finiteness, and a
+   small slice against the plain path on the CPU.
+9. Timings with CUDA events: K3-K6 against their plain versions, K4 and
+   K5 both at the library shape, the library scan in ms per scan and
+   tracks per second, the single-file path in ms.
 
 The plain versions run with TF32 off. Prints one JSON line of per-kernel
 numbers, the card's name and power limit, and last
@@ -37,6 +53,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+import numpy as np
 
 SEED = 1234
 RATE = 48000
@@ -102,6 +120,67 @@ def noise(gen, shape, dev):
     return x
 
 
+def rows_noise(gen, shape, dev):
+    """Seeded noise over (..., N) with a louder second half in time."""
+    import torch
+
+    x = torch.randn(shape, generator=gen, device=dev) * 0.1
+    x[..., x.shape[-1] // 2:] *= 3.0
+    return x
+
+
+def energy_close(what, got, want, h, group) -> float:
+    """K3-K5 z against its plain version: per group and as 100 ms sums."""
+    err = check_close(f"{what} z", got, want, 1e-3,
+                      1e-6 * float(want.abs().max()))
+    hg = h // group
+    nb = got.shape[-1] // hg
+
+    def sums(z):
+        return z[:, : nb * hg].double().reshape(z.shape[0], nb, hg).sum(-1)
+
+    check_close(f"{what} sub-block sums", sums(got), sums(want), 3e-4, 2e-5)
+    return err
+
+
+def rows_compare(IIR, K6, filt, x, nv, rate, group, kernels):
+    """K3/K4/K5/K6 (those named) against their plain versions on x;
+    returns {kernel: max abs error} (z for K3-K5, true peak for K6)."""
+    import torch
+
+    from soundscope_tpu_torch.core.constants import samples_in_100ms
+    from soundscope_tpu_torch.ops.kweight import channel_weights
+
+    ch = x.shape[1] if x.ndim == 3 else 2
+    w = tuple(float(v) for v in channel_weights(ch))
+    h = samples_in_100ms(rate)
+    tag = f"rate {rate} shape {tuple(x.shape)} group {group}"
+    errs = {}
+    if "K3" in kernels:
+        got = IIR.kweight_energy_tp_prefix(filt, x, nv, w, rate, group)
+        want = IIR.kweight_energy_tp_prefix_plain(filt, x, nv, w, rate, group)
+        torch.cuda.synchronize()
+        errs["K3"] = energy_close(f"K3 {tag}", got[0], want[0], h, group)
+        check_close(f"K3 {tag} true peak", got[1], want[1], 2e-6, 1e-7)
+        check_close(f"K3 {tag} sample peak", got[2], want[2], 0.0, 0.0)
+    for k, fn, plain in (("K4", IIR.kweight_energy_prefix, IIR.kweight_energy_prefix_plain),
+                         ("K5", IIR.kweight_energy_chain, IIR.kweight_energy_chain_plain)):
+        if k in kernels:
+            got = fn(filt, x, nv, w, group)
+            want = plain(filt, x, nv, w, group)
+            torch.cuda.synchronize()
+            errs[k] = energy_close(f"{k} {tag}", got, want, h, group)
+    if "K6" in kernels:
+        got = K6.true_peak_stream(x, nv, rate)
+        want = K6.true_peak_stream_plain(x, nv, rate)
+        torch.cuda.synchronize()
+        errs["K6"] = check_close(f"K6 {tag} true peak", got[0], want[0], 2e-6, 1e-7)
+        check_close(f"K6 {tag} sample peak", got[1], want[1], 0.0, 0.0)
+    print(f"phase rows: {tag} " + " ".join(
+        f"{k} max abs err {v:.3e}" for k, v in errs.items()) + " ok")
+    return errs
+
+
 def k1_compare(K1, filt_fn, x4, nv, rate):
     """K1 kernel against its plain version on the card; returns the max
     abs error of the sub-block energy sums."""
@@ -141,10 +220,13 @@ def main() -> int:
     from soundscope_tpu_torch.core.config import MeterConfig
     from soundscope_tpu_torch.models.engine import analyze_array, analyze_batch_native
     from soundscope_tpu_torch.ops import _build
+    from soundscope_tpu_torch.models.engine import analyze_fn, pad_bucket, rows_plan
+    from soundscope_tpu_torch.ops import iir as IIR
     from soundscope_tpu_torch.ops import iir_chunked as K1
     from soundscope_tpu_torch.ops import stft_pooled as K2
+    from soundscope_tpu_torch.ops import truepeak_stream as K6
     from soundscope_tpu_torch.ops.biquad import make_block_filter
-    from soundscope_tpu_torch.ops.kweight import kweight_cascade_ss
+    from soundscope_tpu_torch.ops.kweight import channel_weights, kweight_cascade_ss
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -312,6 +394,189 @@ def main() -> int:
           f"({TRACKS} x {n_bench / RATE:.3f} s) {on}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {on}")
 
+    # 7. K3-K6 against their plain versions: the CPU tests' cases ...
+    for rate, b, ch, group, ks in [
+            (48000, 3, 2, 32, "K3 K4 K5 K6"), (48000, 3, 2, 1, "K3 K4 K5"),
+            (44100, 3, 2, 1, "K3 K4 K5 K6"), (96000, 3, 2, 32, "K3 K6"),
+            (48000, 1, 2, 32, "K3 K4 K5 K6"), (192000, 1, 6, 32, "K4 K5")]:
+        n = 226 * 128
+        x = rows_noise(gen, (b, ch, n), dev)
+        nv = torch.tensor([n, n - 700, n // 2][:b], device=dev)
+        rows_compare(IIR, K6, filt_fn(rate), x, nv, rate, group, ks.split())
+    for blk_n in (512 * 20, 384 * 25, 256 * 37, 128 * 73):
+        x = rows_noise(gen, (3, 2, blk_n), dev)
+        nv = torch.tensor([blk_n, blk_n - 333, blk_n // 2], device=dev)
+        for rate in (48000, 96000):
+            rows_compare(IIR, K6, None, x, nv, rate, 1, ["K6"])
+
+    # ... and at each configuration's shape
+    NPAD = pad_bucket(240 * 48000)                       # 2^24
+    LIB_TRACKS, LIB_N = 1000, 15 * 48000                 # 720,000 = 5625 blocks
+    NV_SINGLE = 240 * 48000
+    NV_51 = 60 * 192000
+    x_single = rows_noise(gen, (1, 2, NPAD), dev)
+    nv_single = torch.tensor([NV_SINGLE], device=dev)
+    x_51 = rows_noise(gen, (1, 6, NPAD), dev)
+    nv_51 = torch.tensor([NV_51], device=dev)
+    x_lib = rows_noise(gen, (2 * LIB_TRACKS, LIB_N), dev)
+    nv_lib = torch.full((LIB_TRACKS,), LIB_N, device=dev)
+    nv_lib[1::4] -= 48000 * 3 + 333
+    x_slice, nv_slice = x_lib[:64], nv_lib[:32]         # 32 tracks, full length
+    errs = {}
+    errs.update(rows_compare(IIR, K6, filt_fn(48000), x_single, nv_single, 48000, 32, ["K3"]))
+    errs.update(rows_compare(IIR, K6, filt_fn(192000), x_51, nv_51, 192000, 32, ["K4"]))
+    lib_errs = rows_compare(IIR, K6, filt_fn(48000), x_slice, nv_slice, 48000, 32,
+                            ["K4", "K5", "K6"])
+    errs["K5"], errs["K6"] = lib_errs["K5"], lib_errs["K6"]
+
+    # 8. the rows-layout engine path in three configurations at full size
+    def require_finite(what, res, lead, ch):
+        """lead: the track axis, (b,) for a batch, () for one file."""
+        require(tuple(res.integrated_lufs.shape) == lead and
+                tuple(res.true_peak.shape) == (*lead, ch), f"{what}: output shapes")
+        ok = (torch.arange(res.shortterm.shape[-1], device=dev)
+              < res.n_shortterm.unsqueeze(-1))
+        require(bool(ok.any()), f"{what}: no short-term value")
+        for name, v in [("integrated", res.integrated_lufs), ("lra", res.lra),
+                        ("true_peak", res.true_peak), ("sample_peak", res.sample_peak),
+                        ("shortterm", res.shortterm[ok])]:
+            require(bool(torch.isfinite(v).all()), f"{what}: {name} not finite")
+
+    def counts():
+        return {**IIR.LAUNCHES, "K6": K6.LAUNCHES}
+
+    def zero_counts():
+        IIR.LAUNCHES.update(K3=0, K4=0, K5=0)
+        K6.LAUNCHES = 0
+
+    def agree(what, r_gpu, r_cpu):
+        for f, rtol, atol in [("integrated_lufs", 0, 2e-3), ("lra", 0, 2e-3),
+                              ("true_peak", 2e-6, 1e-7), ("sample_peak", 0, 0)]:
+            check_close(f"{what} cuda vs cpu {f}", getattr(r_gpu, f), getattr(r_cpu, f),
+                        rtol, atol)
+        m = r_cpu.shortterm > -1e9
+        check_close(f"{what} cuda vs cpu shortterm", r_gpu.shortterm.cpu()[m],
+                    r_cpu.shortterm[m], 0, 2e-3)
+
+    path_launches = {}
+    cfg_lib = MeterConfig(channels=2, rate=48000, max_blocks=0)
+    require(rows_plan(LIB_N, LIB_TRACKS, 2, 48000, 128) == ("chain", True), "library plan")
+    zero_counts()
+    res_lib = analyze_batch_native(cfg_lib, x_lib, nv_lib)
+    torch.cuda.synchronize()
+    path_launches["library"] = counts()
+    require(path_launches["library"]["K5"] >= 1 and path_launches["library"]["K6"] >= 1,
+            f"library scan did not launch K5 and K6: {path_launches['library']}")
+    require_finite("library scan", res_lib, (LIB_TRACKS,), 2)
+    r_cpu = analyze_batch_native(cfg_lib, x_lib[:4].cpu(), nv_lib[:2].cpu())
+    agree("library scan track 0", res_lib.track(0), r_cpu.track(0))
+    agree("library scan track 1", res_lib.track(1), r_cpu.track(1))
+    print(f"phase library: {LIB_TRACKS} x {LIB_N / 48000:.1f} s rows {tuple(x_lib.shape)}, "
+          f"launches {path_launches['library']}, integrated "
+          f"[{float(res_lib.integrated_lufs.min()):.3f}, "
+          f"{float(res_lib.integrated_lufs.max()):.3f}] LUFS, finite, agrees with the CPU")
+
+    t = np.arange(NV_SINGLE, dtype=np.float64) / 48000
+    tone = (10 ** (-23 / 20) * np.sin(2 * np.pi * 997.0 * t)).astype(np.float32)
+    track = np.stack([tone, tone])
+    require(rows_plan(NPAD, 1, 2, 48000, 128) == ("fused", False), "single-file plan")
+    zero_counts()
+    res_one = analyze_array(track, cfg, device=dev)
+    torch.cuda.synchronize()
+    path_launches["single"] = counts()
+    require(path_launches["single"]["K3"] >= 1,
+            f"single file did not launch K3: {path_launches['single']}")
+    require_finite("single file", res_one, (), 2)
+    st = res_one.shortterm[: int(res_one.n_shortterm)]
+    require(abs(float(res_one.integrated_lufs) + 23.0) < 0.1 and
+            float((st + 23.0).abs().max()) < 0.1,
+            f"single file EBU 3341 case 1: {float(res_one.integrated_lufs)} LUFS")
+    require(bool(((res_one.true_peak - 0.0708).abs() < 1e-3).all()),
+            f"single file true peak {res_one.true_peak.tolist()}")
+    short = track[:, : 20 * 48000]
+    agree("single file first 20 s", analyze_array(short, cfg, device=dev),
+          analyze_array(short, cfg))
+    print(f"phase single: 240 s EBU 3341 case 1 through analyze_array, launches "
+          f"{path_launches['single']}, integrated {float(res_one.integrated_lufs):.4f} LUFS, "
+          f"true peak {[round(v, 5) for v in res_one.true_peak.tolist()]}")
+
+    cfg_51 = MeterConfig(channels=6, rate=192000, max_blocks=0)
+    surround = x_51[0, :, :NV_51].cpu().numpy()
+    require(rows_plan(NPAD, 1, 6, 192000, 128) == ("prefix", False), "5.1 plan")
+    zero_counts()
+    res_51 = analyze_array(surround, cfg_51, device=dev)
+    torch.cuda.synchronize()
+    path_launches["5.1"] = counts()
+    require(path_launches["5.1"]["K4"] >= 1,
+            f"5.1 at 192 kHz did not launch K4: {path_launches['5.1']}")
+    require_finite("5.1 at 192 kHz", res_51, (), 6)
+    short = surround[:, : 8 * 192000]
+    agree("5.1 first 8 s", analyze_array(short, cfg_51, device=dev),
+          analyze_array(short, cfg_51))
+    print(f"phase 5.1: 60 s at 192 kHz through analyze_array, launches "
+          f"{path_launches['5.1']}, integrated {float(res_51.integrated_lufs):.4f} LUFS")
+
+    # 9. timings (kernel, plain, kernel), each pair at one shape
+    w2, w6 = (1.0, 1.0), tuple(float(v) for v in channel_weights(6))
+    f48, f192 = filt_fn(48000), filt_fn(192000)
+
+    def pair(kernel, plain, iters, plain_iters):
+        k = time_ms(kernel, iters)
+        p = time_ms(plain, plain_iters)
+        return (k + time_ms(kernel, iters)) / 2, p
+
+    k3_ms, k3_plain_ms = pair(
+        lambda: IIR.kweight_energy_tp_prefix(f48, x_single, nv_single, w2, 48000, 32),
+        lambda: IIR.kweight_energy_tp_prefix_plain(f48, x_single, nv_single, w2, 48000, 32),
+        5, 2)
+    k4_ms, k4_plain_ms = pair(
+        lambda: IIR.kweight_energy_prefix(f192, x_51, nv_51, w6, 32),
+        lambda: IIR.kweight_energy_prefix_plain(f192, x_51, nv_51, w6, 32), 5, 2)
+    k4_slice_ms, k4_slice_plain_ms = pair(
+        lambda: IIR.kweight_energy_prefix(f48, x_slice, nv_slice, w2, 32),
+        lambda: IIR.kweight_energy_prefix_plain(f48, x_slice, nv_slice, w2, 32), 5, 2)
+    k5_ms, k5_plain_ms = pair(
+        lambda: IIR.kweight_energy_chain(f48, x_slice, nv_slice, w2, 32),
+        lambda: IIR.kweight_energy_chain_plain(f48, x_slice, nv_slice, w2, 32), 5, 2)
+    k6_ms, k6_plain_ms = pair(
+        lambda: K6.true_peak_stream(x_slice, nv_slice, 48000),
+        lambda: K6.true_peak_stream_plain(x_slice, nv_slice, 48000), 5, 2)
+    k4_lib_ms = time_ms(lambda: IIR.kweight_energy_prefix(f48, x_lib, nv_lib, w2, 32), 3)
+    k5_lib_ms = time_ms(lambda: IIR.kweight_energy_chain(f48, x_lib, nv_lib, w2, 32), 3)
+    k4_lib_ms = (k4_lib_ms + time_ms(
+        lambda: IIR.kweight_energy_prefix(f48, x_lib, nv_lib, w2, 32), 3)) / 2
+    k6_lib_ms = time_ms(lambda: K6.true_peak_stream(x_lib, nv_lib, 48000), 3)
+    scan_ms = time_ms(lambda: analyze_batch_native(cfg_lib, x_lib, nv_lib), 3)
+    x_one = torch.zeros((2, NPAD), device=dev)
+    x_one[:, :NV_SINGLE] = torch.from_numpy(track).to(dev)
+    single_ms = time_ms(lambda: analyze_fn(cfg, x_one, NV_SINGLE), 5)
+    t0 = time.time()
+    analyze_array(track, cfg, device=dev)
+    torch.cuda.synchronize()
+    single_wall_ms = (time.time() - t0) * 1000
+    x_5 = torch.zeros((6, NPAD), device=dev)
+    x_5[:, :NV_51] = x_51[0, :, :NV_51]
+    surround_ms = time_ms(lambda: analyze_fn(cfg_51, x_5, NV_51), 5)
+    lib_shape = f"library shape ({2 * LIB_TRACKS}, {LIB_N})"
+    slice_shape = f"library slice {tuple(x_slice.shape)}"
+    print(f"timing K3 kernel {k3_ms:.4f} ms plain {k3_plain_ms:.4f} ms "
+          f"(single-file shape {tuple(x_single.shape)}) {on}")
+    print(f"timing K4 kernel {k4_ms:.4f} ms plain {k4_plain_ms:.4f} ms "
+          f"(5.1 shape {tuple(x_51.shape)}) {on}")
+    print(f"timing K4 kernel {k4_slice_ms:.4f} ms plain {k4_slice_plain_ms:.4f} ms "
+          f"({slice_shape}) {on}")
+    print(f"timing K5 kernel {k5_ms:.4f} ms plain {k5_plain_ms:.4f} ms ({slice_shape}) {on}")
+    print(f"timing K6 kernel {k6_ms:.4f} ms plain {k6_plain_ms:.4f} ms ({slice_shape}) {on}")
+    print(f"timing K4 {k4_lib_ms:.4f} ms K5 {k5_lib_ms:.4f} ms K6 {k6_lib_ms:.4f} ms "
+          f"({lib_shape}) {on}")
+    print(f"timing library scan {scan_ms:.4f} ms per scan = "
+          f"{LIB_TRACKS / (scan_ms / 1000):.1f} tracks per second "
+          f"({LIB_TRACKS} x {LIB_N / 48000:.1f} s) {on}")
+    print(f"timing single file (240 s, 48 kHz stereo) {single_ms:.4f} ms on the device "
+          f"tensor, {single_wall_ms:.4f} ms through analyze_array from host memory {on}")
+    print(f"timing 5.1 at 192 kHz (60 s) {surround_ms:.4f} ms on the device tensor {on}")
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {on}")
+
     kernels = [
         {"name": "K1 kweight_energy_tp_chunked", "route": "cuda",
          "source": "soundscope_tpu_torch/csrc/iir_chunked.cu",
@@ -323,6 +588,26 @@ def main() -> int:
          "replaces": "soundscope_tpu/ops/pallas_stft.py:364",
          "launches": launches["K2"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": "K3 kweight_energy_tp_prefix", "route": "cuda",
+         "source": "soundscope_tpu_torch/csrc/iir_rows.cu",
+         "replaces": "soundscope_tpu/ops/pallas_iir.py:577",
+         "launches": path_launches["single"]["K3"], "max_abs_err": errs["K3"],
+         "ms": k3_ms, "plain_ms": k3_plain_ms},
+        {"name": "K4 kweight_energy_prefix", "route": "cuda",
+         "source": "soundscope_tpu_torch/csrc/iir_rows.cu",
+         "replaces": "soundscope_tpu/ops/pallas_iir.py:500",
+         "launches": path_launches["5.1"]["K4"], "max_abs_err": errs["K4"],
+         "ms": k4_ms, "plain_ms": k4_plain_ms},
+        {"name": "K5 kweight_energy_chain", "route": "cuda",
+         "source": "soundscope_tpu_torch/csrc/iir_rows.cu",
+         "replaces": "soundscope_tpu/ops/pallas_iir.py:308",
+         "launches": path_launches["library"]["K5"], "max_abs_err": errs["K5"],
+         "ms": k5_ms, "plain_ms": k5_plain_ms},
+        {"name": "K6 true_peak_stream", "route": "cuda",
+         "source": "soundscope_tpu_torch/csrc/truepeak_stream.cu",
+         "replaces": "soundscope_tpu/ops/pallas_truepeak.py:166",
+         "launches": path_launches["library"]["K6"], "max_abs_err": errs["K6"],
+         "ms": k6_ms, "plain_ms": k6_plain_ms},
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")

@@ -1,11 +1,14 @@
-"""Build and load the CUDA kernels (K1, K2) as one shared library.
+"""Build and load the CUDA kernels (K1-K6) as one shared library.
 
 `library()` compiles every ``soundscope_tpu_torch/csrc/*.cu`` with nvcc
-for Hopper (``sm_90a``) into ``build/soundscope_tpu_torch/<key>/
-libsstorch.so`` beside the package, where <key> hashes the sources and
-flags, and loads it with ctypes. The sources have a plain C interface and
-include no PyTorch headers, so a build takes seconds. A missing nvcc or a
-failed build raises; nothing falls back.
+for Hopper (``sm_90a``), one nvcc process per source, all started
+together, links the objects into ``build/soundscope_tpu_torch/<key>/
+libsstorch.so`` beside the package, and loads it with ctypes. <key> hashes
+the flags and every file nvcc reads: the sources and the ``*.cuh``/``*.h``
+headers they include, so an edited header rebuilds the library. The
+sources have a plain C interface and include no PyTorch headers, so a
+build takes seconds. A missing nvcc or a failed build raises; nothing
+falls back.
 
 Import this module only where a kernel is launched: the package itself
 imports on machines without a CUDA toolkit.
@@ -25,7 +28,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD = _PKG.parent / "build" / "soundscope_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -38,6 +41,15 @@ _ENTRIES = (
      [_P] * 5 + [_INT, _I64, _INT, _I64, _I64, _I64] + [_P] * 8),
     # frames, tracks, n, nw, hann, g2, twiddles, mid, side, stream
     ("ss_stft_pooled", [_P, _I64, _I64, _I64] + [_P] * 6),
+    # x, n_valid, coef, weights, taps, factor, b, ch, n, L, group,
+    # s_final, s_entry, z, tp_part, sp_part, tp, sp, stream
+    ("ss_kweight_energy_rows",
+     [_P] * 5 + [_INT, _I64, _INT, _I64, _I64, _I64] + [_P] * 8),
+    # x, n_valid, coef, weights, b, ch, n, group, zr, z, stream
+    ("ss_kweight_energy_chain", [_P] * 4 + [_I64, _INT, _I64, _I64] + [_P] * 3),
+    # x, n_valid_rows, taps, factor, rows, n, L, tp_part, sp_part, tp, sp,
+    # stream
+    ("ss_true_peak_stream", [_P] * 3 + [_INT, _I64, _I64, _I64] + [_P] * 5),
 )
 
 
@@ -57,12 +69,28 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    return sorted([*CSRC.glob("*.cuh"), *CSRC.glob("*.h")])
+
+
 def _key() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sources():
+    for f in sorted([*sources(), *headers()]):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands concurrently; raise with the first failure's
+    compiler output once every one has ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    errs = [p.communicate()[1] for p in procs]
+    for c, p, err in zip(cmds, procs, errs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}): {' '.join(c)}\n{err}")
 
 
 def build() -> Path:
@@ -71,13 +99,16 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"libsstorch.{os.getpid()}.tmp.so")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+    tag = os.getpid()
+    objs = [out.with_name(f"{s.stem}.{tag}.o") for s in sources()]
+    exe = nvcc()
+    _run_all([[exe, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+              for s, o in zip(sources(), objs)])
+    tmp = out.with_name(f"libsstorch.{tag}.tmp.so")
+    _run_all([[exe, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
     os.replace(tmp, out)
+    for o in objs:
+        o.unlink(missing_ok=True)
     return out
 
 

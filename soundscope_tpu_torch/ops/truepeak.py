@@ -5,8 +5,9 @@ The signal is oversampled with a 49-tap Hann-windowed-sinc polyphase FIR
 the maximum absolute interpolated value, reported as a linear amplitude.
 The polyphase filter is one `conv1d` with F output channels (phases).
 
-K1 (ops/iir_chunked.py) computes the same FIR inside its kernel; this
-module is its plain counterpart.
+K1 (ops/iir_chunked.py), K3 (ops/iir.py) and K6 (ops/truepeak_stream.py)
+compute the same FIR inside their kernels; this module is their plain
+counterpart.
 """
 
 from __future__ import annotations

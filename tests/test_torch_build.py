@@ -50,11 +50,42 @@ def test_build_compiles_every_source_once_per_key(build_dir, monkeypatch):
     out = _build.build()
     assert out.exists() and out.name == "libsstorch.so"
     assert out.parent.parent == build_dir / "build"
-    args = log.read_text().split()
-    assert "arch=compute_90a,code=sm_90a" in args
-    assert sorted(a for a in args if a.endswith(".cu")) == sorted(
+    calls = [c.split() for c in log.read_text().splitlines()]
+    compiles = [c for c in calls if "-c" in c]
+    links = [c for c in calls if "-shared" in c]
+    # one nvcc per source, then one link of their objects
+    assert len(compiles) == len(_build.sources()) and len(links) == 1
+    assert len(calls) == len(compiles) + 1
+    for c in calls:
+        assert "arch=compute_90a,code=sm_90a" in c
+    assert sorted(a for c in compiles for a in c if a.endswith(".cu")) == sorted(
         str(p) for p in _build.sources())
-    assert {os.path.basename(p) for p in args if p.endswith(".cu")} >= {
-        "iir_chunked.cu", "stft_pooled.cu"}
+    assert {os.path.basename(a) for c in compiles for a in c if a.endswith(".cu")} >= {
+        "iir_chunked.cu", "stft_pooled.cu", "iir_rows.cu", "truepeak_stream.cu"}
+    assert sorted(a for a in links[0] if a.endswith(".o")) == sorted(
+        c[c.index("-o") + 1] for c in compiles)
+    assert not list(out.parent.glob("*.o"))          # objects removed
     assert _build.build() == out                  # same key: no second compile
-    assert len(log.read_text().splitlines()) == 1
+    assert len(log.read_text().splitlines()) == len(calls)
+
+
+def test_edited_header_changes_the_build_key(tmp_path, monkeypatch):
+    """The key hashes every file nvcc reads: a source's included header
+    as well as the sources, so an edited header rebuilds the library."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text('#include "common.cuh"\n')
+    (csrc / "common.cuh").write_text("// v1\n")
+    (csrc / "extra.h").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert [p.name for p in _build.headers()] == ["common.cuh", "extra.h"]
+    k1 = _build._key()
+    assert _build._key() == k1
+    (csrc / "common.cuh").write_text("// v2\n")
+    k2 = _build._key()
+    assert k2 != k1
+    (csrc / "extra.h").write_text("// v2\n")
+    assert _build._key() not in (k1, k2)
+    # the real tree: every header under csrc/ is part of the key
+    monkeypatch.setattr(_build, "CSRC", _build._PKG / "csrc")
+    assert {p.name for p in _build.headers()} >= {"iir_common.cuh"}

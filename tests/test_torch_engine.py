@@ -1,9 +1,9 @@
 """The port's whole-file engine against the JAX one.
 
-The port's 4D frames path (K1's plain version on the CPU) and its 3D path
-are held to the JAX engine's 4D path with the Pallas kernels in interpret
-mode and to its 3D XLA path, at the pins of
-tests/test_pallas_iir_chunked.py: integrated, LRA and valid short-term
+The port's 4D frames path (K1's plain version on the CPU) and its 3D and
+rows paths (the plain versions of K3-K6) are held to the JAX engine with
+the Pallas kernels in interpret mode and to its 3D XLA path, at the pins
+of tests/test_pallas_iir_chunked.py: integrated, LRA and valid short-term
 within 2e-3 LU; true peak rtol 2e-6; n_momentary and n_shortterm exact.
 """
 
@@ -108,9 +108,12 @@ def _as_numpy(r: AnalysisResult):
 
 def test_ebu3341_case1():
     """EBU Tech 3341 case 1: 997 Hz at -23 dBFS stereo reads -23.0 LUFS
-    (integrated and short-term) with true peak 0.0708, through the frames
-    path as the CLI and analyze_array drive it."""
+    (integrated and short-term) with true peak 0.0708, through
+    analyze_array's 3D route (K3's plain version here)."""
+    from soundscope_tpu_torch.models.engine import rows_plan
+
     x = stereo(sine(997.0, 20.0, 48000, -23.0))
+    assert rows_plan(pad_bucket(x.shape[1]), 1, 2, 48000, 128) == ("fused", False)
     res = analyze_array(x, MeterConfig(channels=2, rate=48000))
     assert abs(float(res.integrated_lufs) + 23.0) < 0.1
     st = res.shortterm[: int(res.n_shortterm)]
@@ -126,11 +129,11 @@ def test_analyze_fn_and_short_inputs():
     assert float(res.integrated_lufs) == float("-inf")
     assert int(res.n_momentary) == 0 and int(res.n_shortterm) == 0
     assert float(res.lra) == 0.0
-    # single track on the 3D layout: same peaks as the frames path
+    # single track on the frames layout: same peaks as the 3D path
     n = pad_bucket(x.shape[1])
     xp = np.zeros((2, n), np.float32)
     xp[:, : x.shape[1]] = x
-    r3 = analyze_fn(cfg, torch.from_numpy(xp), x.shape[1])
+    r3 = analyze_fn(cfg, torch.from_numpy(xp).reshape(2, n // 128, 128), x.shape[1])
     np.testing.assert_allclose(r3.true_peak.numpy(), res.true_peak.numpy(),
                                rtol=2e-6, atol=1e-7)
     assert pad_bucket(1) == 1 << 15 and pad_bucket((1 << 15) + 1) == 1 << 16
@@ -174,3 +177,104 @@ def test_gating_functions_match_jax():
         np.testing.assert_allclose(want, exact, rtol=0, atol=atol)
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=atol)
     assert float(TL.loudness_from_energy(torch.tensor(0.0))) == float("-inf")
+
+
+def _interpret_all(monkeypatch):
+    """Patch every Pallas entry of the JAX engine to interpret mode and
+    count which ones it calls."""
+    import soundscope_tpu.ops.pallas_iir as P
+    import soundscope_tpu.ops.pallas_truepeak as TP
+
+    calls = {}
+    for mod, name, tag in [(P, "kweight_energy_tp_pallas_prefix", "K3"),
+                           (P, "kweight_energy_pallas_prefix", "K4"),
+                           (P, "kweight_energy_pallas", "K5"),
+                           (TP, "true_peak_pallas", "K6"),
+                           (JPC, "kweight_energy_tp_chunked", "K1")]:
+        def wrapped(*a, _o=getattr(mod, name), _t=tag, **k):
+            calls[_t] = calls.get(_t, 0) + 1
+            return _o(*a, **{**k, "interpret": True})
+        monkeypatch.setattr(mod, name, wrapped)
+    return calls
+
+
+# (rate, b, ch, blocks of 128, kernels the reference runs)
+ROWS_CASES = [
+    (48000, 2, 2, 4 * 293, {"K3"}),           # fused, 4 blocks a grid step
+    (48000, 2, 2, 1129, {"K5", "K6"}),        # a prime count: kpg 1, chain
+    # 5.1 at 192 kHz: prefix; true_peak_pallas is entered but, at factor 1,
+    # takes a masked max without a kernel call
+    (192000, 1, 6, 4 * 1129, {"K4", "K6"}),
+]
+
+
+@pytest.mark.parametrize("rate,b,ch,nblocks,ref_kernels", ROWS_CASES)
+def test_engine_3d_and_rows_match_jax_pallas_interpret(rate, b, ch, nblocks,
+                                                       ref_kernels, monkeypatch):
+    calls = _interpret_all(monkeypatch)
+    n = nblocks * 128
+    rng = np.random.default_rng(rate + nblocks)
+    x = (rng.standard_normal((b, ch, n)) * 0.1).astype(np.float32)
+    x[..., n // 2:] *= 3.0
+    nv = np.asarray([n, n - 777][:b], np.int32)
+    jcfg = JaxMeterConfig(channels=ch, rate=rate, max_blocks=0, iir_impl="pallas")
+    ref = jax_analyze(jcfg)(jnp.asarray(x), jnp.asarray(nv))
+    assert set(calls) == ref_kernels
+    cfg = meter_config_from_jax(jcfg)
+    port3 = analyze_batch_native(cfg, torch.from_numpy(x), torch.from_numpy(nv))
+    _assert_close(port3, ref)
+    port2 = analyze_batch_native(cfg, torch.from_numpy(x.reshape(b * ch, n)),
+                                 torch.from_numpy(nv))
+    for f in ("integrated_lufs", "lra", "shortterm", "momentary", "true_peak",
+              "sample_peak"):
+        assert torch.equal(getattr(port2, f), getattr(port3, f))
+
+
+def _reference_plan(n, b, ch, rate, block=128):
+    """The JAX engine's own dispatch for the 3D/2D layout
+    (models/engine.py:165-200, _finish): (energy route, K6 runs)."""
+    from soundscope_tpu.core import constants as JC
+    from soundscope_tpu.ops.pallas_iir import (
+        kweight_energy_tp_eligible,
+        pick_kpg_prefix,
+    )
+    from soundscope_tpu.ops.pallas_truepeak import pick_block
+
+    if n % block:
+        route = "plain"
+    elif kweight_energy_tp_eligible(n, b, ch, block, 4, rate):
+        route = "fused"
+    else:
+        route = ("prefix" if pick_kpg_prefix(n // block, b * ch, b, block, 4) >= 4
+                 else "chain")
+    k6 = (route != "fused" and pick_block(n) is not None
+          and JC.true_peak_factor(rate) > 1)
+    return route, k6
+
+
+@pytest.mark.parametrize("name,n,b,ch,rate,want", [
+    # one 240 s 48 kHz stereo track, padded to 2^24 by analyze_array
+    ("single file", 1 << 24, 1, 2, 48000, ("fused", False)),
+    # 60 s of 5.1 at 192 kHz, padded to 2^24
+    ("5.1 at 192 kHz", 1 << 24, 1, 6, 192000, ("prefix", False)),
+    # 1,000 x 15 s of 48 kHz stereo on the rows layout
+    ("library scan", 720000, 1000, 2, 48000, ("chain", True)),
+])
+def test_rows_plan_routes_as_the_reference(name, n, b, ch, rate, want):
+    from soundscope_tpu_torch.models.engine import rows_plan
+
+    assert rows_plan(n, b, ch, rate, 128) == want
+    assert _reference_plan(n, b, ch, rate) == want
+    assert pad_bucket(240 * 48000) == pad_bucket(60 * 192000) == 1 << 24
+
+
+def test_rows_plan_rules():
+    from soundscope_tpu_torch.models.engine import CHAIN_MIN_ROWS, rows_plan
+
+    assert rows_plan(1000 * 128 + 64, 1, 2, 48000, 128) == ("plain", False)
+    # N no multiple of the filter block: plain energy, K6 for the peaks
+    assert rows_plan(128 * 11, 1, 2, 48000, 256) == ("plain", True)
+    assert rows_plan(128 * 10, 32, 2, 96000, 128) == ("fused", False)
+    assert rows_plan(128 * 10, 33, 2, 48000, 128) == ("prefix", True)
+    assert rows_plan(128 * 10, CHAIN_MIN_ROWS // 2, 2, 44100, 128) == ("chain", True)
+    assert rows_plan(128 * 10, CHAIN_MIN_ROWS, 1, 192000, 128) == ("chain", False)
