@@ -5,7 +5,7 @@
 
 Phases, in order (any failure exits non-zero before the result line):
 
-1. CUDA present; build the kernels (K1, K2) from soundscope_tpu_torch/csrc.
+1. CUDA present; build the kernels (K1-K6) from soundscope_tpu_torch/csrc.
 2. K1 against its plain PyTorch version on the card: the CPU tests' cases
    (48 kHz and 44.1 kHz ragged, 96 kHz) and the bench shape (32 tracks x
    60 s of 48 kHz stereo): sub-block sums rtol 3e-4 / atol 2e-5, true peak
@@ -218,9 +218,14 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from soundscope_tpu_torch.apps import cli
     from soundscope_tpu_torch.core.config import MeterConfig
-    from soundscope_tpu_torch.models.engine import analyze_array, analyze_batch_native
+    from soundscope_tpu_torch.models.engine import (
+        analyze_array,
+        analyze_batch_native,
+        analyze_fn,
+        pad_bucket,
+        rows_plan,
+    )
     from soundscope_tpu_torch.ops import _build
-    from soundscope_tpu_torch.models.engine import analyze_fn, pad_bucket, rows_plan
     from soundscope_tpu_torch.ops import iir as IIR
     from soundscope_tpu_torch.ops import iir_chunked as K1
     from soundscope_tpu_torch.ops import stft_pooled as K2
