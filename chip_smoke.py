@@ -5,7 +5,7 @@
 
 Phases, in order (any failure exits non-zero before the result line):
 
-1. CUDA present; build the kernels (K1-K6) from soundscope_tpu_torch/csrc.
+1. CUDA present; build the kernels (K1-K7) from soundscope_tpu_torch/csrc.
 2. K1 against its plain PyTorch version on the card: the CPU tests' cases
    (48 kHz and 44.1 kHz ragged, 96 kHz) and the bench shape (32 tracks x
    60 s of 48 kHz stereo): sub-block sums rtol 3e-4 / atol 2e-5, true peak
@@ -37,10 +37,28 @@ Phases, in order (any failure exits non-zero before the result line):
 9. Timings with CUDA events: K3-K6 against their plain versions, K4 and
    K5 both at the library shape, the library scan in ms per scan and
    tracks per second, the single-file path in ms.
+10. K7 (ops/iir.block_iir_stream) against its plain version on the card:
+   the CPU tests' cases, then the 60 Hz tick (2, 800), the 1 s slab
+   (2, 44100) and the 5.1 slab (6, 192000), each from a random carried
+   state: y and s_final within 2e-5 per unit RMS of x.
+11. The streaming path at full size, the launch counts set to 0 before
+   each run and read after, every meter push of a device tensor under
+   torch.cuda.set_sync_debug_mode("error"): the mic simulation
+   (LiveAnalyzer, 48 kHz pseudo-stereo, 30 s ring, 3,600 pushes of 800
+   frames with a frame() at every tick: K7 once per push, the tone at its
+   chart x, the final state equal to the same pushes on the CPU); a 240 s
+   44.1 kHz stereo track through Analyzer.add_samples in 1 s slabs
+   (integrated within 1e-3 LU and true peak within 1e-6 of analyze_array
+   on the card); EBU Tech 3341 case 1 through the Analyzer at 48 kHz.
+12. Timings with CUDA events: K7 and its plain version at the tick and
+   slab shapes, ms per live push, per frame() and per 1 s slab of
+   add_samples, audio seconds per wall second of each streaming path, and
+   the device operations per push (torch.profiler).
 
 The plain versions run with TF32 off. Prints one JSON line of per-kernel
-numbers, the card's name and power limit, and last
-{"ok": true, "device": {...}}.
+numbers (each with its bound: the larger of its bytes over 3.35 TB/s and
+its float32 operations over 67 TFLOP/s, the H100 SXM's published peaks),
+the card's name and power limit, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -129,6 +147,28 @@ def rows_noise(gen, shape, dev):
     return x
 
 
+# the H100 SXM's published peaks: HBM bytes and float32 operations (outside
+# the tensor cores) per millisecond
+HBM_BYTES_PER_MS = 3.35e12 / 1e3
+F32_OPS_PER_MS = 67e12 / 1e3
+# float32 operations per sample, an FMA counting two: the 4-state modal
+# filter (advance: 4 multiplies + 16 FMAs; output: 1 multiply + 4 FMAs),
+# the weighted square w*y*y added to a sum, and the polyphase FIR
+# (F phases of K taps)
+FILTER_OPS = 45
+ENERGY_OPS = 3
+
+
+def fir_ops(factor: int) -> int:
+    return {1: 0, 2: 2 * 2 * 25, 4: 2 * 4 * 13}[factor]
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(least ms the card could take, "bytes" or "operations")."""
+    b, o = nbytes / HBM_BYTES_PER_MS, ops / F32_OPS_PER_MS
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
 def energy_close(what, got, want, h, group) -> float:
     """K3-K5 z against its plain version: per group and as 100 ms sums."""
     err = check_close(f"{what} z", got, want, 1e-3,
@@ -209,6 +249,224 @@ def k1_compare(K1, filt_fn, x4, nv, rate):
     return err
 
 
+def k7_phase(dev, gen, on) -> float:
+    """10. K7 against its plain version; returns the max abs error of y
+    over unit-RMS input at the configuration shapes."""
+    import torch
+
+    from soundscope_tpu_torch.ops import iir as IIR
+    from soundscope_tpu_torch.ops.biquad import make_block_filter
+    from soundscope_tpu_torch.ops.kweight import kweight_cascade_ss
+
+    worst = 0.0
+    cases = ([(48000, (2, n)) for n in (1, 7, 127, 333, 2048)]
+             + [(48000, (1, 1024)), (48000, (3, 2, 2048)), (44100, (2, 7))]
+             + [(48000, (2, 800)), (44100, (2, 44100)), (192000, (6, 192000))])
+    for rate, shape in cases:
+        filt = make_block_filter(kweight_cascade_ss(rate), 128, dev)
+        x = torch.randn(shape, generator=gen, device=dev) * 0.3
+        s0 = torch.randn((*shape[:-1], 4), generator=gen, device=dev) * 0.1
+        before = IIR.LAUNCHES["K7"]
+        y, s = IIR.block_iir_stream(filt, x, s0)
+        require(IIR.LAUNCHES["K7"] == before + 1, "K7 did not count its launch")
+        yp, sp = IIR.block_iir_stream_plain(filt, x, s0)
+        torch.cuda.synchronize()
+        tol = 2e-5 * max(float(x.pow(2).mean().sqrt()), 1e-3)
+        ey = check_close(f"K7 rate {rate} shape {shape} y", y, yp, 0.0, tol)
+        es = check_close(f"K7 rate {rate} shape {shape} s_final", s, sp, 0.0, tol)
+        if shape in ((2, 800), (2, 44100), (6, 192000)):
+            worst = max(worst, ey / float(x.pow(2).mean().sqrt()))
+        print(f"phase k7: rate {rate} shape {shape} y max abs err {ey:.3e} "
+              f"s_final {es:.3e} (tol {tol:.2e}) ok {on}")
+    return worst
+
+
+def streaming_phase(dev, gen, on) -> dict:
+    """11. the streaming path at full size; returns its launches and the
+    walls of the runs."""
+    import torch
+
+    from soundscope_tpu_torch.core.config import MeterConfig
+    from soundscope_tpu_torch.models import meter as M
+    from soundscope_tpu_torch.models.analyzer import Analyzer
+    from soundscope_tpu_torch.models.engine import analyze_array
+    from soundscope_tpu_torch.models.live import LiveAnalyzer
+    from soundscope_tpu_torch.ops import iir as IIR
+    from soundscope_tpu_torch.ops import iir_chunked as K1
+    from soundscope_tpu_torch.ops import stft_pooled as K2
+    from soundscope_tpu_torch.ops import truepeak_stream as K6
+
+    def zero_counts():
+        IIR.LAUNCHES.update(dict.fromkeys(IIR.LAUNCHES, 0))
+        K1.LAUNCHES = K2.LAUNCHES = K6.LAUNCHES = 0
+
+    def counts():
+        return {"K1": K1.LAUNCHES, "K2": K2.LAUNCHES, **IIR.LAUNCHES, "K6": K6.LAUNCHES}
+
+    def pushing(fn):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    out = {}
+    queries = ("integrated_lufs", "shortterm_lufs", "momentary_lufs", "loudness_range_lu")
+
+    # mic simulation (BASELINE.json config 3): 60 s at a 60 Hz tick
+    rate, tick, ticks, tone = 48000, 800, 3600, 1000.0
+    t = torch.arange(tick * ticks, device=dev, dtype=torch.float64) / rate
+    mono = (10 ** (-12 / 20) * torch.sin(2 * torch.pi * tone * t)).float()
+    mono += torch.randn(mono.shape, generator=gen, device=dev) * 0.003
+    inter = torch.zeros(2 * mono.shape[0], device=dev)
+    inter[0::2] = mono                          # pseudo-stereo [x, 0]
+    cfg = MeterConfig(channels=2, rate=rate, max_blocks=0)
+    live = LiveAnalyzer(cfg, device=dev)
+    zero_counts()
+    t0 = time.time()
+    for k in range(ticks):
+        pushing(lambda: live.push(inter[2 * tick * k: 2 * tick * (k + 1)]))
+        frame = live.frame()
+    torch.cuda.synchronize()
+    out["mic_wall_s"] = time.time() - t0
+    out["mic"] = counts()
+    require(out["mic"]["K7"] == ticks,
+            f"mic simulation: K7 launched {out['mic']['K7']} times for {ticks} pushes")
+    peak_x = live.spectrum_chart_x[int(np.argmax(frame.fft_mid))]
+    want_x = (np.log10(tone) - np.log10(20)) / (np.log10(20000) - np.log10(20)) * 100
+    require(abs(peak_x - want_x) < 2.0, f"mic spectrum peak at x {peak_x}, tone at {want_x}")
+    for name in ("fft_mid", "fft_side", "wf_min", "wf_max", "true_peak"):
+        require(np.isfinite(getattr(frame, name)).all(), f"mic frame {name} not finite")
+    cpu = LiveAnalyzer(cfg, device="cpu")
+    inter_cpu = inter.cpu()
+    for k in range(ticks):
+        cpu.push(inter_cpu[2 * tick * k: 2 * tick * (k + 1)])
+    g, c = live.state.meter, cpu.state.meter
+    for f in ("z_pos", "frames_total", "subblock_fill", "subblocks_done", "block_count",
+              "lra_count", "block_hist", "lra_hist"):
+        require(torch.equal(getattr(g, f).cpu(), getattr(c, f)), f"mic state {f} differs")
+    require(torch.equal(live.state.ring.cpu(), cpu.state.ring), "mic ring differs")
+    for q in queries:
+        a, b = float(getattr(M, q)(cfg, g)), float(getattr(M, q)(cfg, c))
+        require(a == b or abs(a - b) < 1e-3, f"mic {q}: card {a} cpu {b}")
+    check_close("mic true peak", g.true_peak, c.true_peak, 0.0, 1e-6)
+    print(f"phase mic: {ticks} pushes of {tick} frames + {ticks} frames in "
+          f"{out['mic_wall_s']:.3f} s, launches {out['mic']}, spectrum peak x "
+          f"{peak_x:.2f} (tone {want_x:.2f}), short-term {float(frame.shortterm):.4f} LUFS, "
+          f"integrated {float(frame.integrated):.4f}; state equals the CPU's {on}")
+
+    # 240 s of 44.1 kHz stereo through Analyzer.add_samples (BASELINE.json config 2)
+    rate, secs = 44100, 240
+    track = rows_noise(gen, (2, rate * secs), dev)
+    track[:, : rate * 20] *= 0.05                     # a quiet intro
+    inter = track.T.contiguous().reshape(-1)
+    an = Analyzer(channels=2, rate=rate, device=dev)
+    zero_counts()
+    t0 = time.time()
+    pushing(lambda: an.add_samples(inter))
+    torch.cuda.synchronize()
+    out["slab_wall_s"] = time.time() - t0
+    out["track"] = counts()
+    require(out["track"]["K7"] == secs, f"240 s track: K7 launched {out['track']['K7']} "
+            f"times for {secs} slabs")
+    ref = analyze_array(track.cpu().numpy(), MeterConfig(channels=2, rate=rate, max_blocks=0),
+                        device=dev)
+    integ, ref_integ = an.get_integrated_lufs(), float(ref.integrated_lufs)
+    require(np.isfinite(integ) and abs(integ - ref_integ) < 1e-3,
+            f"240 s track integrated {integ} vs analyze_array {ref_integ}")
+    check_close("240 s track true peak", an.state.true_peak, ref.true_peak, 0.0, 1e-6)
+    for q in ("get_shortterm_lufs", "get_momentary_lufs", "get_loudness_range"):
+        require(np.isfinite(getattr(an, q)()), f"240 s track {q} not finite")
+    require(tuple(an.state.block_energy.shape) == (36000,) and
+            int(an.state.block_count) == secs * 10 - 3, "240 s track block history")
+    print(f"phase track: {secs} s at {rate} Hz in {secs} slabs, {out['slab_wall_s']:.3f} s, "
+          f"launches {out['track']}, integrated {integ:.4f} LUFS (analyze_array "
+          f"{ref_integ:.4f}), LRA {an.get_loudness_range():.4f} LU, true peak "
+          f"{[round(v, 6) for v in an.get_true_peak()]} {on}")
+
+    # EBU Tech 3341 case 1 through the Analyzer at 48 kHz
+    t = torch.arange(20 * 48000, device=dev, dtype=torch.float64) / 48000
+    tone = (10 ** (-23 / 20) * torch.sin(2 * torch.pi * 997.0 * t)).float()
+    ebu = Analyzer(channels=2, rate=48000, device=dev)
+    pushing(lambda: ebu.add_samples(torch.stack([tone, tone], 1).reshape(-1)))
+    st, ig, tp = ebu.get_shortterm_lufs(), ebu.get_integrated_lufs(), ebu.get_true_peak()
+    require(abs(st + 23.0) < 0.1 and abs(ig + 23.0) < 0.1,
+            f"EBU 3341 case 1 through the Analyzer: short-term {st}, integrated {ig}")
+    require(abs(tp[0] - 0.0708) < 1e-3 and abs(tp[1] - 0.0708) < 1e-3,
+            f"EBU 3341 case 1 true peak {tp}")
+    print(f"phase ebu: Analyzer short-term {st:.4f} integrated {ig:.4f} LUFS, "
+          f"true peak {[round(v, 5) for v in tp]} {on}")
+    return out
+
+
+def device_ops_per_call(fn, calls: int):
+    """Device operations (kernels, copies, memsets) per call of fn, counted
+    by torch.profiler; None when the trace shows no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n / calls if n else None
+
+
+def streaming_timings(dev, gen, on) -> dict:
+    """12. K7 and the streaming entry points, timed on the card."""
+    import torch
+
+    from soundscope_tpu_torch.core.config import MeterConfig
+    from soundscope_tpu_torch.models.analyzer import Analyzer
+    from soundscope_tpu_torch.models.live import LiveAnalyzer
+    from soundscope_tpu_torch.ops import iir as IIR
+    from soundscope_tpu_torch.ops.biquad import make_block_filter
+    from soundscope_tpu_torch.ops.kweight import kweight_cascade_ss
+
+    out = {}
+    for name, rate, shape, iters in (("tick", 48000, (2, 800), 400),
+                                     ("slab", 44100, (2, 44100), 200)):
+        filt = make_block_filter(kweight_cascade_ss(rate), 128, dev)
+        x = torch.randn(shape, generator=gen, device=dev) * 0.3
+        s0 = torch.zeros((shape[0], 4), device=dev)
+        k = time_ms(lambda: IIR.block_iir_stream(filt, x, s0), iters)
+        p = time_ms(lambda: IIR.block_iir_stream_plain(filt, x, s0), iters // 4)
+        k = (k + time_ms(lambda: IIR.block_iir_stream(filt, x, s0), iters)) / 2
+        out[f"k7_{name}"] = (k, p, shape)
+        print(f"timing K7 kernel {k:.4f} ms plain {p:.4f} ms ({name} shape {shape}) {on}")
+
+    cfg = MeterConfig(channels=2, rate=48000, max_blocks=0)
+    live = LiveAnalyzer(cfg, device=dev)
+    chunk = torch.randn(1600, generator=gen, device=dev) * 0.1
+    pushes = 1200
+    push_ms = time_ms(lambda: live.push(chunk), pushes)
+    t0 = time.time()
+    for _ in range(pushes):
+        live.push(chunk)
+    torch.cuda.synchronize()
+    push_wall_ms = (time.time() - t0) * 1000 / pushes
+    frame_ms = time_ms(lambda: live.frame(), 100)
+    out.update(push_ms=push_ms, push_wall_ms=push_wall_ms, frame_ms=frame_ms)
+    out["ops_per_push"] = device_ops_per_call(lambda: live.push(chunk), 50)
+
+    an = Analyzer(channels=2, rate=44100, device=dev)
+    slab = torch.randn(2 * 44100, generator=gen, device=dev) * 0.1
+    out["slab_ms"] = time_ms(lambda: an.add_samples(slab), 60)
+    out["ops_per_slab"] = device_ops_per_call(lambda: an.add_samples(slab), 10)
+    ops = {k: ("not measured" if out[k] is None else f"{out[k]:.1f}")
+           for k in ("ops_per_push", "ops_per_slab")}
+    print(f"timing live push {push_ms:.4f} ms (CUDA events), {push_wall_ms:.4f} ms wall; "
+          f"frame() {frame_ms:.4f} ms; device ops per push {ops['ops_per_push']} {on}")
+    print(f"timing Analyzer.add_samples {out['slab_ms']:.4f} ms per 1 s slab at 44.1 kHz "
+          f"stereo = {1000 / out['slab_ms']:.1f} audio-s/s; device ops per slab "
+          f"{ops['ops_per_slab']} {on}")
+    print(f"timing mic pushes alone {800 / 48000 / (push_wall_ms / 1000):.1f} audio-s/s {on}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -232,6 +490,7 @@ def main() -> int:
     from soundscope_tpu_torch.ops import truepeak_stream as K6
     from soundscope_tpu_torch.ops.biquad import make_block_filter
     from soundscope_tpu_torch.ops.kweight import channel_weights, kweight_cascade_ss
+    from soundscope_tpu_torch.utils.io import write_wav
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -334,7 +593,7 @@ def main() -> int:
 
     # 5. the CLI in-process
     with tempfile.TemporaryDirectory() as tmp:
-        wav = cli._io().write_wav
+        wav = write_wav
         g = torch.Generator().manual_seed(SEED)
         files = []
         for name, secs in [("tone", 8), ("noise_a", 6), ("noise_b", 4)]:
@@ -582,38 +841,70 @@ def main() -> int:
     print(f"timing 5.1 at 192 kHz (60 s) {surround_ms:.4f} ms on the device tensor {on}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {on}")
 
-    kernels = [
-        {"name": "K1 kweight_energy_tp_chunked", "route": "cuda",
-         "source": "soundscope_tpu_torch/csrc/iir_chunked.cu",
-         "replaces": "soundscope_tpu/ops/pallas_iir_chunked.py:383",
-         "launches": launches["K1"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "K2 stft_pooled_frames", "route": "cuda",
-         "source": "soundscope_tpu_torch/csrc/stft_pooled.cu",
-         "replaces": "soundscope_tpu/ops/pallas_stft.py:364",
-         "launches": launches["K2"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
-        {"name": "K3 kweight_energy_tp_prefix", "route": "cuda",
-         "source": "soundscope_tpu_torch/csrc/iir_rows.cu",
-         "replaces": "soundscope_tpu/ops/pallas_iir.py:577",
-         "launches": path_launches["single"]["K3"], "max_abs_err": errs["K3"],
-         "ms": k3_ms, "plain_ms": k3_plain_ms},
-        {"name": "K4 kweight_energy_prefix", "route": "cuda",
-         "source": "soundscope_tpu_torch/csrc/iir_rows.cu",
-         "replaces": "soundscope_tpu/ops/pallas_iir.py:500",
-         "launches": path_launches["5.1"]["K4"], "max_abs_err": errs["K4"],
-         "ms": k4_ms, "plain_ms": k4_plain_ms},
-        {"name": "K5 kweight_energy_chain", "route": "cuda",
-         "source": "soundscope_tpu_torch/csrc/iir_rows.cu",
-         "replaces": "soundscope_tpu/ops/pallas_iir.py:308",
-         "launches": path_launches["library"]["K5"], "max_abs_err": errs["K5"],
-         "ms": k5_ms, "plain_ms": k5_plain_ms},
-        {"name": "K6 true_peak_stream", "route": "cuda",
-         "source": "soundscope_tpu_torch/csrc/truepeak_stream.cu",
-         "replaces": "soundscope_tpu/ops/pallas_truepeak.py:166",
-         "launches": path_launches["library"]["K6"], "max_abs_err": errs["K6"],
-         "ms": k6_ms, "plain_ms": k6_plain_ms},
+    # 10.-12. K7 and the streaming path
+    k7_err = k7_phase(dev, gen, on)
+    stream = streaming_phase(dev, gen, on)
+    print(f"streaming: mic simulation {60 / stream['mic_wall_s']:.1f} audio-s/s with a "
+          f"frame() every tick; 240 s track {240 / stream['slab_wall_s']:.1f} audio-s/s "
+          f"through add_samples {on}")
+    st = streaming_timings(dev, gen, on)
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {on}")
+
+    # bounds at the timed shapes (bytes: inputs read once, outputs written once)
+    n_bench_all = TRACKS * 2 * n_bench
+    nw = n_bench // 2048 - 7
+    fft_ops = 5 * 16384 * 14 + 6 * 16384       # one packed complex FFT + window
+    n_slice = x_slice.numel()
+    tick = 2 * 800
+    bounds = {
+        "K1": bound(4 * n_bench_all, n_bench_all * (FILTER_OPS + ENERGY_OPS + fir_ops(4))),
+        "K2": bound(4 * n_bench_all + 4 * TRACKS * nw * 128 * 2, TRACKS * nw * fft_ops),
+        "K3": bound(4 * (x_single.numel() + NPAD // 32 + 4),
+                    x_single.numel() * (FILTER_OPS + ENERGY_OPS + fir_ops(4))),
+        "K4": bound(4 * (x_51.numel() + NPAD // 32),
+                    5 * NPAD * (FILTER_OPS + ENERGY_OPS)),   # the LFE has weight 0
+        "K5": bound(4 * (n_slice + n_slice // 2 // 32), n_slice * (FILTER_OPS + ENERGY_OPS)),
+        "K6": bound(4 * (n_slice + 2 * x_slice.shape[0]), n_slice * fir_ops(4)),
+        "K7": bound(4 * (2 * tick + 2 * 8), tick * FILTER_OPS),
+    }
+    k7_ms, k7_plain_ms, _ = st["k7_tick"]
+    rows = [
+        ("K1 kweight_energy_tp_chunked", "iir_chunked.cu", "pallas_iir_chunked.py:383",
+         launches["K1"], k1_err, k1_ms, k1_plain_ms),
+        ("K2 stft_pooled_frames", "stft_pooled.cu", "pallas_stft.py:364",
+         launches["K2"], k2_err, k2_ms, k2_plain_ms),
+        ("K3 kweight_energy_tp_prefix", "iir_rows.cu", "pallas_iir.py:577",
+         path_launches["single"]["K3"], errs["K3"], k3_ms, k3_plain_ms),
+        ("K4 kweight_energy_prefix", "iir_rows.cu", "pallas_iir.py:500",
+         path_launches["5.1"]["K4"], errs["K4"], k4_ms, k4_plain_ms),
+        ("K5 kweight_energy_chain", "iir_rows.cu", "pallas_iir.py:308",
+         path_launches["library"]["K5"], errs["K5"], k5_ms, k5_plain_ms),
+        ("K6 true_peak_stream", "truepeak_stream.cu", "pallas_truepeak.py:166",
+         path_launches["library"]["K6"], errs["K6"], k6_ms, k6_plain_ms),
+        ("K7 block_iir_stream", "block_iir.cu", "pallas_iir.py:67",
+         stream["mic"]["K7"], k7_err, k7_ms, k7_plain_ms),
     ]
+    # no single PyTorch call computes any of these functions (a K-weighted
+    # grouped energy, a pooled mid/side spectrogram, a polyphase true peak,
+    # an IIR with carried state), so library_ms is null throughout
+    kernels = [
+        {"name": name, "route": "cuda", "source": f"soundscope_tpu_torch/csrc/{src}",
+         "replaces": f"soundscope_tpu/ops/{rep}", "launches": n, "max_abs_err": err,
+         "ms": ms, "plain_ms": plain, "bound_ms": bounds[name[:2]][0],
+         "bound_by": bounds[name[:2]][1], "library_ms": None}
+        for name, src, rep, n, err, ms, plain in rows]
+    n_lib = x_lib.numel()
+    k7_slab_ms = st["k7_slab"][0]
+    for name, (b_ms, by), ms in [
+            *((k["name"], (k["bound_ms"], k["bound_by"]), k["ms"]) for k in kernels),
+            ("K5 at the library shape", bound(4 * (n_lib + n_lib // 2 // 32),
+                                              n_lib * (FILTER_OPS + ENERGY_OPS)), k5_lib_ms),
+            ("K6 at the library shape", bound(4 * (n_lib + 2 * x_lib.shape[0]),
+                                              n_lib * fir_ops(4)), k6_lib_ms),
+            ("K7 at the slab shape", bound(4 * (2 * 2 * 44100 + 2 * 8), 2 * 44100 * FILTER_OPS),
+             k7_slab_ms)]:
+        print(f"bound {name}: {b_ms:.7f} ms by {by}, kernel {ms:.4f} ms = "
+              f"{ms / b_ms:.1f} x bound {on}")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

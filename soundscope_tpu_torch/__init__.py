@@ -1,8 +1,8 @@
 """soundscope_tpu_torch — the PyTorch/CUDA port of ``soundscope_tpu``.
 
-The whole-file analysis of the JAX package, written in PyTorch, with the
-Pallas kernels it runs rewritten by hand in CUDA C++ for Hopper
-(``sm_90a``):
+The whole-file analysis and the streaming meter of the JAX package,
+written in PyTorch, with every Pallas kernel rewritten by hand in CUDA C++
+for Hopper (``sm_90a``):
 
 * K1 ``ops/iir_chunked.py`` + ``csrc/iir_chunked.cu``: K-weighting IIR,
   channel-weighted energy split at the 100 ms boundaries, and the fused
@@ -12,7 +12,9 @@ Pallas kernels it runs rewritten by hand in CUDA C++ for Hopper
 * K3, K4, K5 ``ops/iir.py`` + ``csrc/iir_rows.cu``: the channel-weighted
   K-weighted energy on the (b, ch, N) / rows layout, K3 with the peaks;
 * K6 ``ops/truepeak_stream.py`` + ``csrc/truepeak_stream.cu``: the
-  streaming true peak and sample peak.
+  streaming true peak and sample peak;
+* K7 ``ops/iir.py:block_iir_stream`` + ``csrc/block_iir.cu``: the
+  K-weighting filter with carried state, once per meter push.
 
 Each kernel has a plain PyTorch version beside it. Which one runs is
 decided by the input tensor's device alone: a CPU tensor takes the plain
@@ -20,11 +22,14 @@ version, a CUDA tensor launches the kernel (built with ``nvcc`` at first
 use, see ``ops/_build.py``) or raises.
 
 Layout mirrors the reference package:
-  core/    constants and the meter configuration
+  core/    constants, the meter configuration and state, devices
   ops/     DSP functions and the kernels' wrappers
-  models/  the whole-file analysis engine
+  models/  the whole-file engine (engine.py), the streaming meter
+           (meter.py), the ``Analyzer`` facade (analyzer.py) and the live
+           mic/player pipeline (live.py)
   apps/    the batch CLI (``analyze`` / ``scan``)
-  utils/   conversion of the JAX package's parameters (tests)
+  utils/   host audio decoders (io.py), checkpoints (checkpoint.py), and
+           conversion of the JAX package's parameters and states (params.py)
   csrc/    CUDA sources
 
 This package never imports ``jax``, ``flax`` or ``soundscope_tpu``.
@@ -33,3 +38,12 @@ This package never imports ``jax``, ``flax`` or ``soundscope_tpu``.
 __version__ = "0.1.0"
 
 from soundscope_tpu_torch.core.config import MeterConfig  # noqa: E402,F401
+
+
+def __getattr__(name):
+    # lazy, to keep `import soundscope_tpu_torch` cheap and cycle-free
+    if name == "Analyzer":
+        from soundscope_tpu_torch.models.analyzer import Analyzer
+
+        return Analyzer
+    raise AttributeError(name)

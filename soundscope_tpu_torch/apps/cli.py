@@ -10,46 +10,24 @@ view (b, ch, N/128, 128) on the CUDA device when there is one, else on
 the CPU. On CUDA the bucket runs through K1 and, with --spectrogram above
 40 kHz, K2.
 
-Decoding reuses the JAX package's pure-NumPy WAV and AIFF readers,
-loaded by file path so that nothing of JAX is imported; other formats
-fall to the ffmpeg command line where one is installed.
+Decoding uses the port's own NumPy WAV and AIFF readers (utils/io.py);
+other formats fall to the ffmpeg command line where one is installed.
 """
 
 from __future__ import annotations
 
 import argparse
-import functools
-import importlib.util
 import json
 import os
 import sys
-from pathlib import Path
 
 import numpy as np
 
 from soundscope_tpu_torch import __version__
+from soundscope_tpu_torch.core.device import default_device
+from soundscope_tpu_torch.utils import io as sio
 
 FLUSH_AT = 64
-_IO_PATH = Path(__file__).resolve().parents[2] / "soundscope_tpu" / "utils" / "io.py"
-
-
-@functools.lru_cache(maxsize=None)
-def _io():
-    """The reference's host decoders (soundscope_tpu/utils/io.py), loaded
-    by file path under a private name: importing it as a package module
-    would run soundscope_tpu/__init__.py and load JAX."""
-    name = "_soundscope_torch_io"
-    spec = importlib.util.spec_from_file_location(name, _IO_PATH)
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[name] = mod          # its dataclasses resolve their module
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def _device():
-    import torch
-
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
 def _export_path(dir_: str, title: str, suffix: str, used: dict) -> str:
@@ -68,7 +46,7 @@ def _analyze_bucket(key, items, results, spectrogram_dir=None,
     from soundscope_tpu_torch.models.engine import analyze_batch_native
 
     ch, rate, npad = key
-    dev = _device()
+    dev = default_device()
     used = used_names if used_names is not None else {}
     cfg = MeterConfig(channels=ch, rate=rate, max_blocks=0)
     xs = np.zeros((len(items), ch, npad), np.float32)
@@ -126,7 +104,6 @@ def _analyze_paths(paths: list[str], spectrogram_dir: str | None = None,
                    timeline_dir: str | None = None) -> list[dict]:
     from soundscope_tpu_torch.models.engine import pad_bucket
 
-    io = _io()
     results: list[dict] = []
     buckets: dict[tuple, list] = {}
     used_names: dict = {}
@@ -137,8 +114,8 @@ def _analyze_paths(paths: list[str], spectrogram_dir: str | None = None,
 
     for p in paths:
         try:
-            d = io.decode_file(p, prefer_native=False)
-        except (io.DecodeError, OSError) as e:
+            d = sio.decode_file(p)
+        except (sio.DecodeError, OSError) as e:
             results.append({"file": p, "error": str(e)})
             continue
         key = (d.channels, d.rate, pad_bucket(d.samples.shape[1]))
@@ -181,7 +158,7 @@ def cmd_analyze(args) -> int:
 
 
 def cmd_scan(args) -> int:
-    exts = _io().AUDIO_EXTENSIONS
+    exts = sio.AUDIO_EXTENSIONS
     paths = []
     for root, _, names in os.walk(args.dir):
         for nm in sorted(names):
@@ -195,9 +172,8 @@ def cmd_scan(args) -> int:
 
 
 _DECODE_NOTE = (
-    "Decoding: WAV and AIFF are read by the JAX package's NumPy decoders "
-    "(loaded by file path, without JAX); other formats need an ffmpeg "
-    "binary on PATH.")
+    "Decoding: WAV and AIFF are read by the port's NumPy decoders; other "
+    "formats need an ffmpeg binary on PATH.")
 
 
 def main(argv=None) -> int:

@@ -21,7 +21,8 @@ class MeterConfig:
       channels: number of input channels.
       rate: sample rate in Hz.
       max_blocks: capacity of the exact gating-block energy history
-        (100 ms cadence); 0 selects histogram mode in the streaming meter.
+        (100 ms cadence); 0 selects histogram mode in the streaming meter
+        (models/meter.py), which the whole-file engine never uses.
       block: inner block length of the blocked state-space K-weighting
         filter (ops/biquad.py).
     """
@@ -42,6 +43,19 @@ class MeterConfig:
     def subblock(self) -> int:
         """Samples per 100 ms sub-block."""
         return C.samples_in_100ms(self.rate)
+
+    @property
+    def momentary_window(self) -> int:
+        return self.subblock * C.MOMENTARY_SUBBLOCKS
+
+    @property
+    def shortterm_window(self) -> int:
+        return self.subblock * C.SHORTTERM_SUBBLOCKS
+
+    @property
+    def max_lra_blocks(self) -> int:
+        """Capacity of the exact short-term (LRA) history (1 s cadence)."""
+        return 0 if self.max_blocks == 0 else max(self.max_blocks // C.LRA_HOP_SUBBLOCKS + 1, 16)
 
     @property
     def true_peak_factor(self) -> int:

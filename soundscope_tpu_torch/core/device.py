@@ -1,0 +1,39 @@
+"""Where the port computes, and how constants get there.
+
+`default_device` picks the card when there is one, unless the caller asks
+for the CPU. `upload` copies a host constant to a device without asking
+PyTorch to wait for the stream: the streaming meter builds its constants
+at the first push, and a push of a CUDA tensor must not synchronise the
+host (chip_smoke.py runs every push under
+``torch.cuda.set_sync_debug_mode("error")``). A copy from pageable host
+memory is staged by the driver before the call returns, so the source may
+be freed at once.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def default_device(device=None) -> torch.device:
+    """`device` as a torch.device; None means CUDA when available, else CPU."""
+    if device is None:
+        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    return torch.device(device)
+
+
+def upload(a, device) -> torch.Tensor:
+    """A host array or tensor on `device`; a copy from the host to a CUDA
+    device does not wait for the stream."""
+    t = torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray) else a
+    dev = torch.device(device)
+    return t.to(dev, non_blocking=dev.type == "cuda" and t.device.type == "cpu")
+
+
+def as_float32(samples, device) -> torch.Tensor:
+    """Samples (a NumPy array or a tensor) as float32 on `device`; a tensor
+    already there is not copied."""
+    if isinstance(samples, torch.Tensor):
+        return samples.to(device=device, dtype=torch.float32)
+    return torch.from_numpy(np.array(samples, np.float32)).to(device)

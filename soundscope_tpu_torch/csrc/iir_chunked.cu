@@ -107,7 +107,7 @@ extern "C" int ss_kweight_energy_tp(
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
   prefix_pass<<<blocks_for(rows), THREADS, 0, st>>>(coef, rows, nsteps, s_final,
-                                                  s_entry);
+                                                  s_entry, nullptr);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
   const unsigned g = blocks_for(rows * nsteps);

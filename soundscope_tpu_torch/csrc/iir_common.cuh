@@ -1,5 +1,6 @@
 // Device code shared by the K-weighting energy and true-peak kernels
-// (K1 iir_chunked.cu, K3/K4/K5 iir_rows.cu, K6 truepeak_stream.cu).
+// (K1 iir_chunked.cu, K3/K4/K5 iir_rows.cu, K6 truepeak_stream.cu) and the
+// streaming filter (K7 block_iir.cu).
 //
 // All of them solve the 4-state K-weighting recurrence s <- A s + B x,
 // y = C s + D x in the modal realisation (block-diagonal A,
@@ -9,7 +10,8 @@
 //   zero_state_pass  one thread per (row, step): the step's final state
 //                    from a zero state;
 //   prefix_pass      one thread per row: s_entry[j+1] = A^L s_entry[j] +
-//                    s_final0[j] (A^L built on the host in float64);
+//                    s_final0[j] (A^L built on the host in float64), from
+//                    s_entry[0] = 0 or the caller's carried state s0;
 //   a correction pass of each kernel's own: refilter from s_entry[j];
 //   peaks_pass       one warp per row: deterministic max of per-(row,
 //                    step) partial peaks, tp = max(tp, sp).
@@ -166,7 +168,8 @@ zero_state_pass(const float* __restrict__ x, const float* __restrict__ coef,
 
 __global__ void __launch_bounds__(THREADS)
 prefix_pass(const float* __restrict__ coef, int64_t rows, int64_t nsteps,
-            const float* __restrict__ s_final, float* __restrict__ s_entry) {
+            const float* __restrict__ s_final, float* __restrict__ s_entry,
+            const float* __restrict__ s0) {
   const int64_t row = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (row >= rows) return;
   float AL[NS * NS];
@@ -174,6 +177,10 @@ prefix_pass(const float* __restrict__ coef, int64_t rows, int64_t nsteps,
   for (int i = 0; i < NS * NS; ++i) AL[i] = __ldg(coef + CO_AL + i);
   constexpr int U = 8;         // steps whose s_final loads are issued together
   float s[NS] = {0.f, 0.f, 0.f, 0.f};
+  if (s0 != nullptr) {
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s[i] = s0[row * NS + i];
+  }
   const float* sf = s_final + row * nsteps * NS;
   float* se = s_entry + row * nsteps * NS;
   for (int64_t j0 = 0; j0 < nsteps; j0 += U) {

@@ -1,4 +1,4 @@
-"""Build and load the CUDA kernels (K1-K6) as one shared library.
+"""Build and load the CUDA kernels (K1-K7) as one shared library.
 
 `library()` compiles every ``soundscope_tpu_torch/csrc/*.cu`` with nvcc
 for Hopper (``sm_90a``), one nvcc process per source, all started
@@ -50,6 +50,9 @@ _ENTRIES = (
     # x, n_valid_rows, taps, factor, rows, n, L, tp_part, sp_part, tp, sp,
     # stream
     ("ss_true_peak_stream", [_P] * 3 + [_INT, _I64, _I64, _I64] + [_P] * 5),
+    # x, row stride, sample stride, s0, coef, rows, n, L, s_final0, s_entry,
+    # y, s_out, stream
+    ("ss_block_iir_stream", [_P, _I64, _I64, _P, _P, _I64, _I64, _I64] + [_P] * 5),
 )
 
 

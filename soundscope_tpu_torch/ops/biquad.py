@@ -30,6 +30,8 @@ import functools
 import numpy as np
 import torch
 
+from soundscope_tpu_torch.core.device import upload
+
 
 @dataclasses.dataclass(frozen=True)
 class BlockFilter:
@@ -42,6 +44,8 @@ class BlockFilter:
       A_pows (B + 1, n, n): A^0 .. A^B
     Host float64 (the modal realisation the tensors were built from):
       A (n, n), Bv (n,), Cv (n,), D, and A_block = A^B
+    The split-time kernels' float32 constants are cached per (steps,
+    device) by `constants`.
     """
 
     Tt: torch.Tensor
@@ -54,11 +58,15 @@ class BlockFilter:
     Cv: np.ndarray
     D: float
     A_block: np.ndarray
+    _consts: dict = dataclasses.field(default_factory=dict, init=False,
+                                      repr=False, compare=False)
 
     def to(self, device) -> "BlockFilter":
+        if self.Tt.device == torch.device(device):
+            return self
         return dataclasses.replace(
-            self, Tt=self.Tt.to(device), Wt=self.Wt.to(device),
-            Ot=self.Ot.to(device), A_pows=self.A_pows.to(device))
+            self, Tt=upload(self.Tt, device), Wt=upload(self.Wt, device),
+            Ot=upload(self.Ot, device), A_pows=upload(self.A_pows, device))
 
     def power(self, steps: int) -> np.ndarray:
         """A^steps in float64 (the state advance over `steps` samples),
@@ -66,6 +74,17 @@ class BlockFilter:
         if steps % self.block == 0:
             return np.linalg.matrix_power(self.A_block, steps // self.block)
         return np.linalg.matrix_power(self.A, steps)
+
+    def constants(self, steps: int, device) -> torch.Tensor:
+        """The kernels' float32 constants on `device`: A (row-major), B, C,
+        D and A^steps (csrc/iir_common.cuh's coef layout). Built once per
+        (steps, device) and uploaded without a host sync."""
+        key = (steps, torch.device(device))
+        if key not in self._consts:
+            self._consts[key] = upload(np.concatenate([
+                self.A.reshape(-1), self.Bv, self.Cv, [self.D],
+                self.power(steps).reshape(-1)]).astype(np.float32), device)
+        return self._consts[key]
 
 
 @functools.lru_cache(maxsize=None)
@@ -163,9 +182,8 @@ def make_block_filter(ss, block: int = 128, device="cpu") -> BlockFilter:
     )
     Tt, Wt, Ot, pows = _build_block_filter_np(key, block)
     return BlockFilter(
-        Tt=torch.from_numpy(Tt).to(device), Wt=torch.from_numpy(Wt).to(device),
-        Ot=torch.from_numpy(Ot).to(device),
-        A_pows=torch.from_numpy(pows).to(device), block=block,
+        Tt=upload(Tt, device), Wt=upload(Wt, device), Ot=upload(Ot, device),
+        A_pows=upload(pows, device), block=block,
         A=np.asarray(A), Bv=np.asarray(Bv), Cv=np.asarray(Cv), D=float(D),
         A_block=np.linalg.matrix_power(np.asarray(A), block),
     )

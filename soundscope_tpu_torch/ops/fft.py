@@ -1,9 +1,12 @@
-"""Packed FFT of two real signals — the plain version inside K2's
-counterpart (ops/stft.py).
+"""FFTs on `torch.fft`.
 
-The JAX package evaluates this transform as four-step DFT matmuls for the
-TPU's matrix unit; the plain version here is `torch.fft.fft`. K2
-(csrc/stft_pooled.cu) computes its own FFT in shared memory.
+`fft_pack2` is the packed FFT of two real signals, the plain version
+inside K2's counterpart (ops/stft.py); the JAX package evaluates it as
+four-step DFT matmuls for the TPU's matrix unit, and K2
+(csrc/stft_pooled.cu) computes its own FFT in shared memory. `rfft_mag` is
+the display spectrum's magnitude, which the JAX package computes outside
+Pallas with `jnp.fft.rfft`; its TPU-only four-step matmul variant is not
+ported.
 """
 
 from __future__ import annotations
@@ -27,3 +30,8 @@ def fft_pack2(a: torch.Tensor, b: torch.Tensor):
     br = 0.5 * (zi + zi_rev)
     bi = 0.5 * (zr_rev - zr)
     return ar, ai, br, bi
+
+
+def rfft_mag(x: torch.Tensor) -> torch.Tensor:
+    """|rfft(x)| along the last axis: (..., N) -> (..., N//2 + 1)."""
+    return torch.fft.rfft(x, dim=-1).abs()

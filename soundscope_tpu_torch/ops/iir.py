@@ -1,4 +1,5 @@
-"""K3, K4, K5: K-weighted energy over the rows layout.
+"""K3, K4, K5: K-weighted energy over the rows layout; K7: the streaming
+filter.
 
 The counterpart of the JAX package's ``ops/pallas_iir.py``. Each entry
 takes the K-weighting `BlockFilter`, x as (b, ch, N) or as rows (b*ch, N)
@@ -27,6 +28,14 @@ channels' group sums into z in channel order; K5 carries the state sample
 by sample, one thread per row, and adds the channels in a second pass. See
 that file for the design and what bounds it.
 
+K7 (csrc/block_iir.cu, replaces `block_iir_pallas`, pallas_call at
+``pallas_iir.py:67``) filters with carried state: `block_iir_stream(filt,
+x, s0) -> (y, s_final)` computes what ops/biquad.block_iir computes, for
+any N >= 1, with s0 and s_final in the modal basis of the filter. The
+streaming meter (models/meter.py) filters every push through it.
+`block_iir_zero` is the counterpart of `block_iir_pallas`: zero state, y
+only.
+
 Each entry launches its kernel on a CUDA tensor and runs its `*_plain`
 version on a CPU tensor; any other device raises. The plain versions are
 the port's blocked filter (ops/biquad.block_iir) and true_peak_masked.
@@ -42,10 +51,15 @@ from soundscope_tpu_torch.ops.biquad import BlockFilter, block_iir
 from soundscope_tpu_torch.ops.truepeak import _polyphase_taps, true_peak_masked
 
 # kernel launches (one per call of an entry on CUDA)
-LAUNCHES = {"K3": 0, "K4": 0, "K5": 0}
+LAUNCHES = {"K3": 0, "K4": 0, "K5": 0, "K7": 0}
 
 # longest step of the split-time kernels (K3, K4) and of K6's spans
 MAX_SPAN = 4096
+
+# K7's step: its prefix walks N / STREAM_STEP steps per row and its
+# correction STREAM_STEP samples per thread, about balanced at the meter's
+# 44,100-sample slabs and 192,000-sample 5.1 slabs
+STREAM_STEP = 256
 
 
 def span_length(n: int, cap: int = MAX_SPAN) -> int:
@@ -130,13 +144,6 @@ def _launchable(filt: BlockFilter, x, n_valid, weights, what: str):
     return b, ch, n, nv
 
 
-def _coef(filt: BlockFilter, steps: int, dev) -> torch.Tensor:
-    """The kernels' float32 constants: A, B, C, D and A^steps."""
-    return torch.from_numpy(np.concatenate([
-        filt.A.reshape(-1), filt.Bv, filt.Cv, [filt.D],
-        filt.power(steps).reshape(-1)]).astype(np.float32)).to(dev)
-
-
 def _rows_kernel(filt, x, n_valid, weights, group, factor, what):
     """Launch ss_kweight_energy_rows: factor 0 is K4, 2 or 4 is K3."""
     b, ch, n, nv = _launchable(filt, x, n_valid, weights, what)
@@ -146,7 +153,7 @@ def _rows_kernel(filt, x, n_valid, weights, group, factor, what):
     rows, nsteps = b * ch, n // L
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
-    coef = _coef(filt, L, dev)
+    coef = filt.constants(L, dev)
     taps = torch.from_numpy(_polyphase_taps(factor).reshape(-1) if factor
                             else np.zeros(1, np.float32)).to(dev)
     w = torch.tensor([float(v) for v in weights], **f32)
@@ -218,7 +225,7 @@ def kweight_energy_chain(filt: BlockFilter, x: torch.Tensor,
         raise ValueError(f"{what}: group {group} does not divide N = {n}")
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
-    coef = _coef(filt, 1, dev)
+    coef = filt.constants(1, dev)
     w = torch.tensor([float(v) for v in weights], **f32)
     zr = torch.empty((b * ch, n // group), **f32)
     z = torch.empty((b, n // group), **f32)
@@ -234,3 +241,63 @@ def kweight_energy_chain(filt: BlockFilter, x: torch.Tensor,
     _build.raise_on_error(lib, err, what)
     LAUNCHES["K5"] += 1
     return z
+
+
+def block_iir_stream_plain(filt: BlockFilter, x: torch.Tensor, s0: torch.Tensor):
+    """Plain PyTorch version of K7: ops/biquad.block_iir."""
+    return block_iir(filt.to(x.device), x, s0)
+
+
+def block_iir_stream(filt: BlockFilter, x: torch.Tensor, s0: torch.Tensor):
+    """Filter x (..., N) float32 from the state s0 (..., 4) (K7).
+
+    Returns (y (..., N), s_final (..., 4)), as ops/biquad.block_iir. x may
+    be a strided view (the meter's channels of interleaved audio): the
+    kernel reads it through its strides. N = 0 launches nothing.
+    """
+    what = "K7 block_iir_stream"
+    if x.device.type == "cpu":
+        return block_iir_stream_plain(filt, x, s0)
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on CPU or CUDA tensors, not {x.device}")
+    if x.dtype != torch.float32 or s0.dtype != torch.float32:
+        raise TypeError(f"{what}: x and s0 must be float32")
+    if filt.A.shape != (4, 4):
+        raise ValueError(f"{what} is built for the 4-state K-weighting cascade")
+    batch, n = x.shape[:-1], x.shape[-1]
+    if tuple(s0.shape) != (*batch, 4) or s0.device != x.device:
+        raise ValueError(f"{what}: s0 must be {(*batch, 4)} on {x.device}, "
+                         f"got {tuple(s0.shape)} on {s0.device}")
+    rows = int(np.prod(batch)) if batch else 1
+    if n == 0 or rows == 0:
+        return x.new_empty(x.shape), s0.clone()
+    x2 = x.reshape(rows, n)
+    s0c = s0.reshape(rows, 4).contiguous()
+    L = STREAM_STEP
+    nsteps = -(-n // L)
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    coef = filt.constants(L, dev)
+    s_final0 = torch.empty((rows, nsteps, 4), **f32)
+    s_entry = torch.empty((rows, nsteps, 4), **f32)
+    y = torch.empty((rows, n), **f32)
+    s_out = torch.empty((rows, 4), **f32)
+
+    from soundscope_tpu_torch.ops import _build
+
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.ss_block_iir_stream(
+            x2.data_ptr(), x2.stride(0), x2.stride(1), s0c.data_ptr(),
+            coef.data_ptr(), rows, n, L, s_final0.data_ptr(), s_entry.data_ptr(),
+            y.data_ptr(), s_out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.raise_on_error(lib, err, what)
+    LAUNCHES["K7"] += 1
+    return y.reshape(*batch, n), s_out.reshape(*batch, 4)
+
+
+def block_iir_zero(filt: BlockFilter, x: torch.Tensor) -> torch.Tensor:
+    """Zero-initial-state filtering of (..., N) (K7; JAX: block_iir_pallas)."""
+    y, _ = block_iir_stream(filt, x, x.new_zeros((*x.shape[:-1], 4)))
+    return y

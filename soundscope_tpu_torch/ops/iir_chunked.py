@@ -141,9 +141,7 @@ def kweight_energy_tp_chunked(filt: BlockFilter, x4: torch.Tensor,
     factor = C.true_peak_factor(rate)
     dev = x4.device
     f32 = dict(dtype=torch.float32, device=dev)
-    coef = torch.from_numpy(np.concatenate([
-        filt.A.reshape(-1), filt.Bv, filt.Cv, [filt.D],
-        filt.power(L).reshape(-1)]).astype(np.float32)).to(dev)
+    coef = filt.constants(L, dev)
     taps = torch.from_numpy(
         _polyphase_taps(factor).reshape(-1) if factor > 1
         else np.zeros(1, np.float32)).to(dev)

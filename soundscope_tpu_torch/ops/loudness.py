@@ -11,16 +11,21 @@ integrated loudness is the mean energy of blocks passing both gates.
 Loudness range (EBU Tech 3342): 3 s blocks at 1 s hop; absolute gate
 -70 LUFS; relative gate 20 LU below; LRA = l(95th) - l(10th percentile).
 
-These are the exact-mode functions of the JAX package's ops/loudness.py
-that the whole-file engine uses; every function takes an optional
-validity mask.
+The exact-mode functions take an optional validity mask; the whole-file
+engine and the streaming meter's exact history use them. The histogram
+mode (libebur128's) keeps counts per 0.08 LU bin and serves the streaming
+meter's unbounded history; it quantises by at most half a bin.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from soundscope_tpu_torch.core import constants as C
+from soundscope_tpu_torch.core.device import upload
 
 _ABS_GATE_ENERGY = float(10.0 ** ((C.ABSOLUTE_GATE_LUFS - C.LOUDNESS_OFFSET_DB) / 10.0))
 NEG_INF = float("-inf")
@@ -118,3 +123,66 @@ def loudness_range(st_energies: torch.Tensor, mask: torch.Tensor | None = None):
     l_low = _masked_percentile_loudness(e, m2, n2, C.LRA_LOW_PERCENTILE)
     l_high = _masked_percentile_loudness(e, m2, n2, C.LRA_HIGH_PERCENTILE)
     return torch.where(n2 > 0, l_high - l_low, 0.0)
+
+
+# --- histogram mode (unbounded-duration streaming) ---------------------------
+
+@functools.lru_cache(maxsize=None)
+def _hist_bin_energies() -> np.ndarray:
+    l = C.HIST_MIN_LUFS + (np.arange(C.HIST_BINS) + 0.5) * (
+        (C.HIST_MAX_LUFS - C.HIST_MIN_LUFS) / C.HIST_BINS
+    )
+    return (10.0 ** ((l - C.LOUDNESS_OFFSET_DB) / 10.0)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _hist_constants(device: torch.device):
+    """(bin-center energies, bin-center loudness) on `device`, float32."""
+    width = (C.HIST_MAX_LUFS - C.HIST_MIN_LUFS) / C.HIST_BINS
+    centers = C.HIST_MIN_LUFS + (np.arange(C.HIST_BINS) + 0.5) * width
+    return (upload(_hist_bin_energies(), device),
+            upload(centers.astype(np.float32), device))
+
+
+def hist_bin_index(energies: torch.Tensor) -> torch.Tensor:
+    """Histogram bin of each energy (int32); -1 when below the absolute gate."""
+    l = loudness_from_energy(energies)
+    width = (C.HIST_MAX_LUFS - C.HIST_MIN_LUFS) / C.HIST_BINS
+    idx = torch.floor((l - C.HIST_MIN_LUFS) / width)
+    idx = torch.clamp(torch.nan_to_num(idx, neginf=-1.0), 0, C.HIST_BINS - 1)
+    return torch.where(l >= C.HIST_MIN_LUFS, idx.to(torch.int32), -1)
+
+
+def _hist_gate(hist: torch.Tensor, rel_lu: float):
+    """(counts as float32, bin energies, mask of bins above the relative
+    gate, number of blocks) of a histogram (..., HIST_BINS)."""
+    hist = hist.to(torch.float32)
+    e_bins, _ = _hist_constants(hist.device)
+    n1 = hist.sum(dim=-1)
+    mean1 = (hist * e_bins).sum(dim=-1) / torch.clamp(n1, min=1.0)
+    keep = e_bins >= (mean1 * 10.0 ** (rel_lu / 10.0)).unsqueeze(-1)
+    return hist, e_bins, keep, n1
+
+
+def gated_loudness_hist(hist: torch.Tensor):
+    """Integrated loudness from the gating histogram (counts per bin;
+    bin-center energies — <=0.04 LU quantisation)."""
+    hist, e_bins, keep, n1 = _hist_gate(hist, C.RELATIVE_GATE_LU)
+    n2 = torch.where(keep, hist, 0.0).sum(dim=-1)
+    mean2 = torch.where(keep, hist * e_bins, 0.0).sum(dim=-1) / torch.clamp(n2, min=1.0)
+    return torch.where((n1 > 0) & (n2 > 0), loudness_from_energy(mean2), NEG_INF)
+
+
+def loudness_range_hist(hist: torch.Tensor):
+    """LRA from the short-term histogram (bin centers as energies)."""
+    hist, _, keep, _ = _hist_gate(hist, C.LRA_RELATIVE_GATE_LU)
+    _, centers = _hist_constants(hist.device)
+    counts = torch.where(keep, hist, 0.0)
+    n2 = counts.sum(dim=-1)
+    cum = torch.cumsum(counts, dim=-1)
+    lo_target = torch.floor((n2 - 1.0) * C.LRA_LOW_PERCENTILE + 0.5) + 1.0
+    hi_target = torch.floor((n2 - 1.0) * C.LRA_HIGH_PERCENTILE + 0.5) + 1.0
+    # the first bin whose running count reaches the target
+    lo_idx = torch.argmax((cum >= lo_target.unsqueeze(-1)).to(torch.int32), dim=-1)
+    hi_idx = torch.argmax((cum >= hi_target.unsqueeze(-1)).to(torch.int32), dim=-1)
+    return torch.where(n2 > 0, centers[hi_idx] - centers[lo_idx], 0.0)

@@ -1,17 +1,22 @@
-"""Carry the JAX package's parameters into the port.
+"""Carry the JAX package's parameters and states into the port.
 
 The tests feed the same filter to both packages: the JAX `BlockFilter`'s
 fields, as NumPy arrays, become the port's `BlockFilter`, and a JAX
-`MeterConfig` becomes the port's. Nothing here imports JAX; the caller
+`MeterConfig` becomes the port's. A JAX `MeterState` or `LiveState`,
+given as NumPy arrays by field name, becomes the port's, so that a stream
+begun in JAX can go on in the port. Nothing here imports JAX; the caller
 passes plain arrays and an object with the config's attributes.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from soundscope_tpu_torch.core.config import MeterConfig
+from soundscope_tpu_torch.core.state import MeterState
 from soundscope_tpu_torch.ops.biquad import BlockFilter
 
 
@@ -47,3 +52,25 @@ def meter_config_from_jax(cfg) -> MeterConfig:
     `iir_impl` has no counterpart and is dropped."""
     return MeterConfig(channels=cfg.channels, rate=cfg.rate,
                        max_blocks=cfg.max_blocks, block=cfg.block)
+
+
+def meter_state_from_numpy(fields: dict, device="cpu") -> MeterState:
+    """The port's MeterState from {field name: array} of a JAX MeterState
+    (the same fields, dtypes and modal-basis filter state)."""
+    names = [f.name for f in dataclasses.fields(MeterState)]
+    if sorted(fields) != sorted(names):
+        raise ValueError(f"MeterState fields {sorted(fields)} != {sorted(names)}")
+    return MeterState(**{k: torch.from_numpy(np.array(fields[k])).to(device)
+                         for k in names})
+
+
+def live_state_from_numpy(fields: dict, device="cpu"):
+    """The port's LiveState from {"meter": {field: array}, "ring": array,
+    "pos": array} of a JAX LiveState."""
+    from soundscope_tpu_torch.models.live import LiveState
+
+    return LiveState(
+        meter=meter_state_from_numpy(fields["meter"], device),
+        ring=torch.from_numpy(np.array(fields["ring"], np.float32)).to(device),
+        pos=torch.from_numpy(np.array(fields["pos"], np.int32)).to(device),
+    )

@@ -1,8 +1,11 @@
-"""The port's batch CLI against the JAX CLI, and its JAX-free run."""
+"""The port's batch CLI against the JAX CLI, its decoders against the JAX
+package's, and its JAX-free run."""
 
 import io
 import json
 import os
+import shutil
+import struct
 import subprocess
 import sys
 from contextlib import redirect_stdout
@@ -11,6 +14,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import soundscope_tpu.utils.io as jio
+import soundscope_tpu_torch.utils.io as tio
 from soundscope_tpu.apps.cli import main as jax_main
 from soundscope_tpu.utils.io import write_wav
 from soundscope_tpu.utils.synth import sine, stereo
@@ -76,9 +81,12 @@ def test_cli_table_scan_and_errors(wavs, tmp_path):
     assert _run(torch_main, ["scan", str(tmp_path / "empty")])[0] == 1
 
 
-def test_cli_subprocess_loads_no_jax(wavs):
-    """The port's CLI end to end in a fresh interpreter: it decodes through
-    the reference's io.py loaded by path and never imports JAX."""
+def test_cli_subprocess_loads_no_jax(wavs, tmp_path):
+    """The port's CLI end to end in a fresh interpreter, from a tree that
+    holds soundscope_tpu_torch/ and no soundscope_tpu/: it decodes with its
+    own io.py, reads no file of the JAX package and never imports JAX."""
+    shutil.copytree(REPO / "soundscope_tpu_torch", tmp_path / "soundscope_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
     code = (
         "import sys, json\n"
         "from soundscope_tpu_torch.apps.cli import main\n"
@@ -86,8 +94,70 @@ def test_cli_subprocess_loads_no_jax(wavs):
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'soundscope_tpu')]\n"
         "assert rc == 0 and not bad, (rc, bad)\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     row = json.loads(out.stdout.strip().splitlines()[0])[0]
     assert row["integrated_lufs"] is not None and row["rate"] == 48000
+
+
+def _aiff(path, planar, rate_f80, bits, compression=None):
+    """An AIFF (or AIFC with `compression`) file of 16/24-bit PCM."""
+    inter = np.ascontiguousarray(planar.T).reshape(-1)
+    full = float(2 ** (bits - 1) - 1)
+    x = (np.clip(inter, -1, 1) * full).astype(np.int32)
+    le = compression == b"sowt"
+    if bits == 16:
+        pcm = x.astype("<i2" if le else ">i2").tobytes()
+    else:
+        b = x.astype(">i4").view(np.uint8).reshape(-1, 4)[:, 1:]
+        pcm = (b[:, ::-1] if le else b).tobytes()
+    comm = struct.pack(">HIH", planar.shape[0], planar.shape[1], bits) + rate_f80
+    form = b"AIFC" if compression else b"AIFF"
+    if compression:
+        comm += compression + b"\x00\x00"
+    ssnd = struct.pack(">II", 0, 0) + pcm
+    body = form + b"COMM" + struct.pack(">I", len(comm)) + comm
+    body += b"SSND" + struct.pack(">I", len(ssnd)) + ssnd
+    with open(path, "wb") as f:
+        f.write(b"FORM" + struct.pack(">I", len(body)) + body)
+
+
+@pytest.mark.parametrize("kind", ["wav16", "wav32", "aiff16", "aiff24", "aifc_sowt"])
+def test_decoders_match_jax(tmp_path, kind):
+    """The port's copy of the NumPy decoders reads every file as the JAX
+    package's decoders do, bit for bit."""
+    t = np.arange(4410) / 44100
+    planar = np.stack([0.5 * np.sin(2 * np.pi * 440 * t),
+                       0.25 * np.sin(2 * np.pi * 880 * t)]).astype(np.float32)
+    f80 = bytes.fromhex("400EAC44000000000000")          # 44100.0
+    p = str(tmp_path / ("x.wav" if kind.startswith("wav") else "x.aiff"))
+    if kind == "wav16":
+        tio.write_wav(p, planar, 44100, bits=16)
+    elif kind == "wav32":
+        tio.write_wav(p, planar, 44100, bits=32)
+    elif kind == "aifc_sowt":
+        _aiff(p, planar, f80, 16, b"sowt")
+    else:
+        _aiff(p, planar, f80, int(kind[4:]))
+    got, want = tio.decode_file(p), jio.decode_file(p, prefer_native=False)
+    assert (got.rate, got.title, got.channels) == (want.rate, want.title, want.channels)
+    np.testing.assert_array_equal(got.samples, want.samples)
+    np.testing.assert_array_equal(got.interleaved(), want.interleaved())
+    for a, b in zip(got.mid_side(), want.mid_side()):
+        np.testing.assert_array_equal(a, b)
+    assert tio._read_f80(f80) == jio._read_f80(f80) == 44100.0
+    assert tio.AUDIO_EXTENSIONS == jio.AUDIO_EXTENSIONS
+
+
+def test_decoder_errors_match_jax(tmp_path):
+    bad = tmp_path / "bad.wav"
+    bad.write_bytes(b"RIFF\x00\x00\x00\x00WAVEjunk")
+    for mod in (tio, jio):
+        with pytest.raises(mod.DecodeError):
+            mod.decode_wav(str(bad))
+    raw = np.arange(12, dtype="<i2").tobytes()
+    np.testing.assert_array_equal(tio._pcm_to_f32(raw, 16, 1), jio._pcm_to_f32(raw, 16, 1))
+    with pytest.raises(tio.DecodeError):
+        tio._pcm_to_f32(raw, 12, 1)

@@ -8,7 +8,9 @@ JAX nor the JAX package, so on a machine without JAX they run with
 Tolerances are the CPU parity pins: K1 sub-block sums rtol 3e-4 / atol
 2e-5, true peak rtol 2e-6 / atol 1e-7, sample peak exact; K2 1e-3 dB;
 K3-K5 z per group rtol 1e-3 / atol 1e-6 * max|z| and sub-block sums as
-K1's; K6 as K1's peaks.
+K1's; K6 as K1's peaks; K7 y and s_final 2e-5 abs per unit RMS of x; the
+streaming meter at the pins of tests/test_meter_stream.py (1e-3 LU, true
+peak 1e-6).
 """
 
 import numpy as np
@@ -16,13 +18,18 @@ import pytest
 import torch
 
 from soundscope_tpu_torch.core.config import MeterConfig
+from soundscope_tpu_torch.core.state import init_meter_state
+from soundscope_tpu_torch.models import meter as M
 from soundscope_tpu_torch.models.engine import analyze_batch_native, rows_plan
+from soundscope_tpu_torch.models.live import LiveAnalyzer
 from soundscope_tpu_torch.ops import iir as IIR
 from soundscope_tpu_torch.ops import iir_chunked as K1
 from soundscope_tpu_torch.ops import stft_pooled as K2
 from soundscope_tpu_torch.ops import truepeak_stream as K6
 from soundscope_tpu_torch.ops.biquad import make_block_filter
 from soundscope_tpu_torch.ops.kweight import channel_weights, kweight_cascade_ss
+
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
@@ -172,7 +179,7 @@ def test_rows_plan_routes_launch_their_kernels(cuda, route, rate, b, ch, launche
     x[..., n // 2:] *= 3.0
     nv = torch.full((b,), n)
     nv[1::2] -= 777
-    IIR.LAUNCHES.update(K3=0, K4=0, K5=0)
+    IIR.LAUNCHES.update(dict.fromkeys(IIR.LAUNCHES, 0))
     K6.LAUNCHES = 0
     rg = analyze_batch_native(cfg, x.to(cuda).reshape(b * ch, n), nv.to(cuda))
     torch.cuda.synchronize()
@@ -202,3 +209,91 @@ def test_rows_wrappers_raise_on_what_they_cannot_launch(cuda):
         IIR.kweight_energy_prefix(filt, xt, nv, w)
     with pytest.raises(ValueError):
         K6.true_peak_stream(xt, 1024, 48000)
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (2, 7), (2, 333), (2, 800), (1, 1024),
+                                   (3, 2, 2048), (2, 44100), (6, 192000)])
+def test_k7_kernel_matches_plain(cuda, shape):
+    rng = np.random.default_rng(sum(shape))
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    s0 = torch.from_numpy(
+        (rng.standard_normal((*shape[:-1], 4)) * 0.5).astype(np.float32)).to(cuda)
+    filt = make_block_filter(kweight_cascade_ss(48000), 128, cuda)
+    before = IIR.LAUNCHES["K7"]
+    y, s = IIR.block_iir_stream(filt, x, s0)
+    assert IIR.LAUNCHES["K7"] == before + 1
+    yp, sp = IIR.block_iir_stream_plain(filt, x, s0)
+    torch.cuda.synchronize()
+    assert y.shape == x.shape and s.shape == s0.shape
+    assert float((y - yp).abs().max()) < 2e-5
+    assert float((s - sp).abs().max()) < 2e-5
+    # the zero-state entry is the Pallas kernel's counterpart
+    yz = IIR.block_iir_zero(filt, x)
+    yzp, _ = IIR.block_iir_stream_plain(filt, x, torch.zeros_like(s0))
+    assert float((yz - yzp).abs().max()) < 2e-5
+
+
+def test_k7_reads_a_strided_view(cuda):
+    inter = torch.randn(2 * 44100, device=cuda)
+    view = inter.reshape(44100, 2).T
+    filt = make_block_filter(kweight_cascade_ss(44100), 128, cuda)
+    s0 = torch.randn((2, 4), device=cuda)
+    y1, s1 = IIR.block_iir_stream(filt, view, s0)
+    y2, s2 = IIR.block_iir_stream(filt, view.contiguous(), s0)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+@pytest.mark.parametrize("max_blocks", [1000, 0])
+def test_meter_push_on_card_matches_cpu(cuda, max_blocks):
+    """One stream of pushes on the card (each through K7, none waiting for
+    the device) against the same pushes on the CPU."""
+    cfg = MeterConfig(channels=2, rate=48000, max_blocks=max_blocks)
+    x = _noise((2, 48000 * 5), 77)
+    x[:, 48000 * 2:] *= 4.0
+    step = M.meter_step(cfg)
+    sc, sg = init_meter_state(cfg), init_meter_state(cfg, cuda)
+    xg = x.to(cuda)
+    before = IIR.LAUNCHES["K7"]
+    pos, sizes, i = 0, [16384, 1000, 333, 4800, 48000], 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        while pos < x.shape[1]:
+            size = min(sizes[i % len(sizes)], x.shape[1] - pos)
+            sg = step(sg, xg[:, pos:pos + size])
+            pos, i = pos + size, i + 1
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert IIR.LAUNCHES["K7"] == before + i
+    pos = 0
+    for k in range(i):
+        size = min(sizes[k % len(sizes)], x.shape[1] - pos)
+        sc = step(sc, x[:, pos:pos + size])
+        pos += size
+    for f in ("subblocks_done", "block_count", "lra_count", "block_hist", "lra_hist",
+              "z_pos", "frames_total"):
+        assert torch.equal(getattr(sg, f).cpu(), getattr(sc, f)), f
+    for q in ("integrated_lufs", "shortterm_lufs", "momentary_lufs", "loudness_range_lu"):
+        assert abs(float(getattr(M, q)(cfg, sg)) - float(getattr(M, q)(cfg, sc))) < 1e-3, q
+    np.testing.assert_allclose(sg.true_peak.cpu().numpy(), sc.true_peak.numpy(), atol=1e-6)
+
+
+def test_live_push_and_frame_on_card(cuda):
+    cfg = MeterConfig(channels=2, rate=48000, max_blocks=0)
+    lg = LiveAnalyzer(cfg, seconds=2, device=cuda)
+    lc = LiveAnalyzer(cfg, seconds=2, device="cpu")
+    x = _noise((2 * 48000 * 3,), 78)
+    xg = x.to(cuda)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for lo in range(0, x.shape[0], 1600):
+            lg.push(xg[lo:lo + 1600])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for lo in range(0, x.shape[0], 1600):
+        lc.push(x[lo:lo + 1600])
+    fg, fc = lg.frame(), lc.frame()
+    np.testing.assert_array_equal(fg.wf_min, fc.wf_min)
+    np.testing.assert_array_equal(fg.wf_max, fc.wf_max)
+    assert abs(float(fg.shortterm) - float(fc.shortterm)) < 1e-3
+    near = fc.fft_mid > fc.fft_mid.max() - 40.0
+    np.testing.assert_allclose(fg.fft_mid[near], fc.fft_mid[near], atol=1e-3)
