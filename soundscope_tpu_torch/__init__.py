@@ -19,7 +19,10 @@ for Hopper (``sm_90a``):
 Each kernel has a plain PyTorch version beside it. Which one runs is
 decided by the input tensor's device alone: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel (built with ``nvcc`` at first
-use, see ``ops/_build.py``) or raises.
+use, see ``ops/_build.py``) or raises. The entry points that build
+tensors (``Analyzer``, ``LiveAnalyzer``, ``init_meter_state``,
+``analyze_array``, the checkpoint loaders) put them on the card when
+there is one, unless the caller passes ``device="cpu"``.
 
 Layout mirrors the reference package:
   core/    constants, the meter configuration and state, devices

@@ -16,6 +16,7 @@ import torch
 
 from soundscope_tpu_torch.core import constants as C
 from soundscope_tpu_torch.core.config import MeterConfig
+from soundscope_tpu_torch.core.device import default_device
 
 
 @dataclasses.dataclass
@@ -61,7 +62,10 @@ class MeterState:
                              for f in dataclasses.fields(self)})
 
 
-def init_meter_state(cfg: MeterConfig, device="cpu") -> MeterState:
+def init_meter_state(cfg: MeterConfig, device=None) -> MeterState:
+    """A fresh state on `device`: the card when there is one, unless the
+    caller asks for the CPU."""
+    device = default_device(device)
     ch = cfg.channels
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)

@@ -128,9 +128,13 @@ class Analyzer:
                          vals.cpu().numpy().astype(np.float64)], axis=-1)
 
     @staticmethod
-    def get_waveform(samples, window_secs: float) -> np.ndarray:
-        """(2*valid, 2) of (x, min)/(x, max) pairs — src/analyzer.rs:107-137."""
-        return waveform_points(as_float32(samples, "cpu"), window_secs)
+    def get_waveform(samples, window_secs: float, device=None) -> np.ndarray:
+        """(2*valid, 2) of (x, min)/(x, max) pairs — src/analyzer.rs:107-137.
+        A tensor is decimated on its own device, a NumPy array on `device`
+        (None: the card when there is one)."""
+        if isinstance(samples, torch.Tensor):
+            return waveform_points(samples.to(torch.float32), window_secs)
+        return waveform_points(as_float32(samples, default_device(device)), window_secs)
 
     def calculate_integrated_lufs(self, channels: int, samples) -> float | None:
         """Whole-buffer integrated LUFS of interleaved samples (the

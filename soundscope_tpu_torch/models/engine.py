@@ -31,6 +31,7 @@ import torch
 
 from soundscope_tpu_torch.core import constants as C
 from soundscope_tpu_torch.core.config import MeterConfig
+from soundscope_tpu_torch.core.device import default_device
 from soundscope_tpu_torch.ops import iir as IIR
 from soundscope_tpu_torch.ops import loudness as L
 from soundscope_tpu_torch.ops.biquad import block_iir, make_block_filter
@@ -220,8 +221,9 @@ def pad_bucket(n: int, minimum: int = 1 << 15) -> int:
 
 
 def analyze_array(samples: np.ndarray, cfg: MeterConfig,
-                  device="cpu") -> AnalysisResult:
-    """Host convenience: planar (C, N) numpy -> AnalysisResult on `device`.
+                  device=None) -> AnalysisResult:
+    """Host convenience: planar (C, N) numpy -> AnalysisResult on `device`
+    (None: the card when there is one).
 
     The track is padded to `pad_bucket` and analysed on the 3D layout, as
     in the reference, so `rows_plan` routes it (K3 for stereo below
@@ -230,4 +232,4 @@ def analyze_array(samples: np.ndarray, cfg: MeterConfig,
     npad = pad_bucket(n)
     x = np.zeros((ch, npad), np.float32)
     x[:, :n] = samples
-    return analyze_fn(cfg, torch.from_numpy(x).to(device), n)
+    return analyze_fn(cfg, torch.from_numpy(x).to(default_device(device)), n)

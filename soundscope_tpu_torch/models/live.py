@@ -57,7 +57,9 @@ class LiveFrame:
 
 
 def init_live_state(cfg: MeterConfig, seconds: int = C.CAPTURE_RING_SECONDS,
-                    device="cpu") -> LiveState:
+                    device=None) -> LiveState:
+    """A fresh live state on `device` (None: the card when there is one)."""
+    device = default_device(device)
     return LiveState(
         meter=init_meter_state(cfg, device),
         ring=torch.zeros((cfg.rate * seconds,), dtype=torch.float32, device=device),
@@ -162,7 +164,7 @@ class LiveAnalyzer:
         """Resume a mic session bit-exactly from a save() checkpoint."""
         from soundscope_tpu_torch.utils.checkpoint import load_live
 
-        cfg, seconds, state = load_live(path, default_device(device))
+        cfg, seconds, state = load_live(path, device)
         self = cls(cfg, seconds=seconds, device=device)
         self.state = state
         return self

@@ -23,13 +23,15 @@ Exactness notes (as in the JAX package):
   quantisation), giving unbounded stream duration.
 
 The JAX step walks the sub-blocks a push completes in a Python loop of
-about a dozen ops each (11 iterations per 1 s slab). Here they are handled
-all at once: the chronological sequence of the last 30 sub-block sums and
-the new ones gives every gating and LRA energy as a window sum, the
-histories are appended by gathers, and the histograms take one
-`index_add` each, so the number of ops per push does not grow with its
-length. The energies are the same sums as the JAX loop's, taken in
-chronological order.
+about a dozen ops each (eleven passes for a 1 s slab). Here they are
+handled at once: the last 30 completed sub-block sums, oldest first,
+followed by this push's give every gating and LRA energy as a window sum
+and the new sub-block ring as a gather; the exact histories take one
+scatter each and the histograms one `index_add` each. The energies are the
+JAX loop's sums, taken in chronological order. On an H100 this issues 144
+device operations per 1 s slab where a literal port of the loop issues
+1,028 and takes 3.6x-8.3x the time, and 129 per 800-frame tick against
+143 (chip_smoke.py, PERF.md).
 """
 
 from __future__ import annotations
@@ -69,12 +71,17 @@ def _wrap_int32(v: torch.Tensor) -> torch.Tensor:
 def _append(buf: torch.Tensor, count: torch.Tensor, emit: torch.Tensor,
             e: torch.Tensor) -> torch.Tensor:
     """buf with the emitted e[j] written at count, count + 1, ... in order
-    of j, as far as buf reaches (entries past its end are dropped)."""
-    cum = torch.cumsum(emit.to(torch.int64), 0)                   # (k,)
-    m = torch.arange(buf.shape[0], device=buf.device) - count     # (cap,)
-    j = torch.searchsorted(cum, m + 1)         # the j of the m-th emission
-    written = (m >= 0) & (m < cum[-1])
-    return torch.where(written, e[torch.clamp(j, max=e.shape[0] - 1)], buf)
+    of j, as far as buf reaches; the rest go to a slot past its end."""
+    cap = buf.shape[0]
+    at = count + torch.cumsum(emit.to(torch.int64), 0) - 1
+    at = torch.where(emit & (at < cap), at, cap)
+    return torch.cat([buf, buf[:1]]).index_put((at,), e)[:cap]
+
+
+def _hist_add(hist: torch.Tensor, emit: torch.Tensor, hb: torch.Tensor) -> torch.Tensor:
+    """hist with one count added at each emitted bin hb (-1: below the gate)."""
+    add = (emit & (hb >= 0)).to(torch.int32)
+    return hist.index_add(0, torch.clamp(hb, min=0).to(torch.int64), add)
 
 
 @functools.lru_cache(maxsize=None)
@@ -116,36 +123,31 @@ def meter_step(cfg: MeterConfig):
         new_partial = sums.index_select(0, torch.clamp(k_complete, max=k_max).reshape(1))[0]
 
         # --- gating (400 ms) and LRA (3 s at 1 s hop) blocks -------------
+        # ext[i] is sub-block done - 30 + i: the last 30 completed ones,
+        # oldest first, then this push's. The j-th new sub-block ends a
+        # gating block of the 4 and an LRA block of the 30 up to ext[30 + j].
         done = state.subblocks_done.to(torch.int64)
-        j = torch.arange(k_max, device=dev)
-        completes = j < k_complete
-        n_done = done + j + 1
-        # the last 30 completed sub-blocks, oldest first, then this push's
-        ring_old = state.subblock_ring[(done + torch.arange(_S, device=dev)) % _S]
-        ext = torch.cat([ring_old, sums[:k_max]])                 # (30 + k_max,)
-        e_g = ext.unfold(0, _M, 1)[_S - _M + 1:_S - _M + 1 + k_max].sum(-1) / (_M * h)
-        e_l = ext.unfold(0, _S, 1)[1:1 + k_max].sum(-1) / (_S * h)
+        last30 = torch.arange(_S, device=dev)
+        ext = torch.cat([state.subblock_ring[(done + last30) % _S], sums[:k_max]])
+        e_g = ext.unfold(0, _M, 1)[_S - _M + 1:][:k_max].sum(-1) / (_M * h)
+        e_l = ext.unfold(0, _S, 1)[1:][:k_max].sum(-1) / (_S * h)
+        j1 = torch.arange(1, k_max + 1, device=dev)       # j + 1
+        completes = j1 <= k_complete
+        n_done = done + j1
         emit_g = completes & (n_done >= _M)
         emit_l = (completes & (n_done >= _S)
                   & ((n_done - _S) % C.LRA_HOP_SUBBLOCKS == 0))
-
-        # ring position p holds the sub-block d = p (mod 30) of the last 30
+        # ring position p holds the completed sub-block m = p (mod 30)
         done2 = done + k_complete
-        d = done2 - _S + (torch.arange(_S, device=dev) - (done2 - _S)) % _S
-        subblock_ring = torch.where(
-            d >= done, sums[torch.clamp(d - done, 0, k_max - 1)], state.subblock_ring)
+        subblock_ring = ext[k_complete + (last30 - done2) % _S]
 
         block_energy, lra_energy = state.block_energy, state.lra_energy
         if exact:
             block_energy = _append(block_energy, state.block_count, emit_g, e_g)
             lra_energy = _append(lra_energy, state.lra_count, emit_l, e_l)
-        block_count = state.block_count + emit_g.sum().to(torch.int32)
-        lra_count = state.lra_count + emit_l.sum().to(torch.int32)
-
-        def hist_add(hist, emit, e):
-            hb = L.hist_bin_index(e)
-            add = (emit & (hb >= 0)).to(torch.int32)
-            return hist.index_add(0, torch.clamp(hb, min=0).to(torch.int64), add)
+        block_count = state.block_count + emit_g.sum(dtype=torch.int32)
+        lra_count = state.lra_count + emit_l.sum(dtype=torch.int32)
+        bins = L.hist_bin_index(torch.cat([e_g, e_l]))     # one lookup for both
 
         # --- peaks ---
         tp, tp_tail = oversampled_abs_peak(chunk, state.tp_tail, cfg.true_peak_factor)
@@ -162,8 +164,8 @@ def meter_step(cfg: MeterConfig):
             block_count=block_count,
             lra_energy=lra_energy,
             lra_count=lra_count,
-            block_hist=hist_add(state.block_hist, emit_g, e_g),
-            lra_hist=hist_add(state.lra_hist, emit_l, e_l),
+            block_hist=_hist_add(state.block_hist, emit_g, bins[:k_max]),
+            lra_hist=_hist_add(state.lra_hist, emit_l, bins[k_max:]),
             true_peak=torch.maximum(state.true_peak, tp),
             sample_peak=torch.maximum(state.sample_peak, sample_peak(chunk)),
             tp_tail=tp_tail,

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from soundscope_tpu_torch.core import constants as C
+from soundscope_tpu_torch.core.device import default_device
 from soundscope_tpu_torch.ops.fft import fft_pack2
 from soundscope_tpu_torch.ops.spectrum import _bin_plan, _hann_np
 
@@ -119,9 +120,10 @@ def stft_midside_display(
     return centers, torch.cat(mids, dim=-2), torch.cat(sides, dim=-2)
 
 
-def spectrogram(samples_planar, rate: int, device="cpu"):
+def spectrogram(samples_planar, rate: int, device=None):
     """Host convenience: planar (C, N) -> dict of pooled display
-    spectrograms over every window, computed on `device`.
+    spectrograms over every window, computed on `device` (None: the card
+    when there is one).
 
     Above 40 kHz (where the display range sits below Nyquist) this runs K2
     (ops/stft_pooled.py: the CUDA kernel on a CUDA device); below, the
@@ -135,6 +137,7 @@ def spectrogram(samples_planar, rate: int, device="cpu"):
         stft_pooled_frames,
     )
 
+    device = default_device(device)
     x = np.asarray(samples_planar, np.float32)
     l, r = (x[0], x[1]) if x.shape[0] >= 2 else (x[0], x[0])
     _, _, centers = _pooled_gain_plan(C.DEFAULT_FFT_SIZE, rate, 128)

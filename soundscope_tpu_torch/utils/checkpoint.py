@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from soundscope_tpu_torch.core.config import MeterConfig
+from soundscope_tpu_torch.core.device import default_device
 from soundscope_tpu_torch.core.state import MeterState, init_meter_state
 
 # MeterConfig fields of the JAX package that the port does not have
@@ -46,7 +47,9 @@ def _save(path: str, key: str, meta: dict, state) -> None:
 
 
 def _load_into(data, template, device):
-    """The template's structure filled with the file's leaves on `device`."""
+    """The template's structure (a CPU state) filled with the file's leaves
+    on `device` (None: the card when there is one)."""
+    device = default_device(device)
     def fill(t, it):
         vals = {}
         for f in dataclasses.fields(t):
@@ -71,10 +74,11 @@ def save_meter(path: str, cfg: MeterConfig, state: MeterState) -> None:
     _save(path, "__config__", dataclasses.asdict(cfg), state)
 
 
-def load_meter(path: str, device="cpu") -> tuple[MeterConfig, MeterState]:
+def load_meter(path: str, device=None) -> tuple[MeterConfig, MeterState]:
+    """-> (cfg, MeterState on `device`; None: the card when there is one)."""
     data = np.load(path)
     cfg = _config(json.loads(bytes(data["__config__"]).decode()))
-    return cfg, _load_into(data, init_meter_state(cfg), device)
+    return cfg, _load_into(data, init_meter_state(cfg, "cpu"), device)
 
 
 def save_live(path: str, cfg: MeterConfig, state, seconds: int) -> None:
@@ -83,12 +87,12 @@ def save_live(path: str, cfg: MeterConfig, state, seconds: int) -> None:
     _save(path, "__live__", {"config": dataclasses.asdict(cfg), "seconds": seconds}, state)
 
 
-def load_live(path: str, device="cpu"):
-    """-> (cfg, seconds, LiveState)."""
+def load_live(path: str, device=None):
+    """-> (cfg, seconds, LiveState on `device`; None: the card when there is one)."""
     from soundscope_tpu_torch.models.live import init_live_state
 
     data = np.load(path)
     meta = json.loads(bytes(data["__live__"]).decode())
     cfg = _config(meta["config"])
     seconds = int(meta["seconds"])
-    return cfg, seconds, _load_into(data, init_live_state(cfg, seconds), device)
+    return cfg, seconds, _load_into(data, init_live_state(cfg, seconds, "cpu"), device)

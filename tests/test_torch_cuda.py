@@ -20,14 +20,17 @@ import torch
 from soundscope_tpu_torch.core.config import MeterConfig
 from soundscope_tpu_torch.core.state import init_meter_state
 from soundscope_tpu_torch.models import meter as M
-from soundscope_tpu_torch.models.engine import analyze_batch_native, rows_plan
-from soundscope_tpu_torch.models.live import LiveAnalyzer
+from soundscope_tpu_torch.models.analyzer import Analyzer
+from soundscope_tpu_torch.models.engine import analyze_array, analyze_batch_native, rows_plan
+from soundscope_tpu_torch.models.live import LiveAnalyzer, init_live_state
+from soundscope_tpu_torch.ops import decimate
 from soundscope_tpu_torch.ops import iir as IIR
 from soundscope_tpu_torch.ops import iir_chunked as K1
 from soundscope_tpu_torch.ops import stft_pooled as K2
 from soundscope_tpu_torch.ops import truepeak_stream as K6
 from soundscope_tpu_torch.ops.biquad import make_block_filter
 from soundscope_tpu_torch.ops.kweight import channel_weights, kweight_cascade_ss
+from soundscope_tpu_torch.utils import checkpoint as CK
 
 pytestmark = pytest.mark.cuda
 
@@ -251,7 +254,7 @@ def test_meter_push_on_card_matches_cpu(cuda, max_blocks):
     x = _noise((2, 48000 * 5), 77)
     x[:, 48000 * 2:] *= 4.0
     step = M.meter_step(cfg)
-    sc, sg = init_meter_state(cfg), init_meter_state(cfg, cuda)
+    sc, sg = init_meter_state(cfg, "cpu"), init_meter_state(cfg, cuda)
     xg = x.to(cuda)
     before = IIR.LAUNCHES["K7"]
     pos, sizes, i = 0, [16384, 1000, 333, 4800, 48000], 0
@@ -297,3 +300,44 @@ def test_live_push_and_frame_on_card(cuda):
     assert abs(float(fg.shortterm) - float(fc.shortterm)) < 1e-3
     near = fc.fft_mid > fc.fft_mid.max() - 40.0
     np.testing.assert_allclose(fg.fft_mid[near], fc.fft_mid[near], atol=1e-3)
+
+
+def test_states_default_to_the_card(cuda, tmp_path):
+    """With no device given, states, checkpoints and the whole-file entry
+    land on the card."""
+    cfg = MeterConfig(channels=2, rate=48000, max_blocks=100)
+    state = init_meter_state(cfg)
+    live = init_live_state(cfg, 1)
+    assert {t.device.type for t in vars(state).values()} == {"cuda"}
+    assert live.ring.is_cuda and live.pos.is_cuda and live.meter.z_ring.is_cuda
+    state = M.meter_step(cfg)(state, _noise((2, 4800), 80).to(cuda))
+    CK.save_meter(str(tmp_path / "m.npz"), cfg, state)
+    CK.save_live(str(tmp_path / "l.npz"), cfg, live, 1)
+    _, loaded = CK.load_meter(str(tmp_path / "m.npz"))
+    assert {t.device.type for t in vars(loaded).values()} == {"cuda"}
+    assert torch.equal(loaded.z_ring, state.z_ring)
+    _, _, lloaded = CK.load_live(str(tmp_path / "l.npz"))
+    assert lloaded.ring.is_cuda and lloaded.meter.block_hist.is_cuda
+    res = analyze_array(_noise((2, 48000), 81).numpy(), cfg)
+    assert res.integrated_lufs.is_cuda
+
+
+def test_get_waveform_decimates_on_the_card(cuda, monkeypatch):
+    """A CUDA tensor is decimated where it lies, and a NumPy array on the
+    card by default; the points equal the CPU's exactly."""
+    seen = []
+    plain = decimate.minmax_decimate
+
+    def spy(samples, window_secs):
+        seen.append(samples.device.type)
+        return plain(samples, window_secs)
+
+    monkeypatch.setattr(decimate, "minmax_decimate", spy)
+    x = _noise((44100,), 82)
+    on_card = Analyzer.get_waveform(x.to(cuda), 15.0)
+    from_host = Analyzer.get_waveform(x.numpy(), 15.0)
+    on_cpu = Analyzer.get_waveform(x.numpy(), 15.0, device="cpu")
+    assert seen == ["cuda", "cuda", "cpu"]
+    assert on_card.shape == (30000, 2)
+    np.testing.assert_array_equal(on_card, on_cpu)
+    np.testing.assert_array_equal(from_host, on_cpu)
