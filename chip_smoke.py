@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--k2-baseline PATH ...]
 
 Phases, in order (any failure exits non-zero before the result line):
 
@@ -10,8 +10,10 @@ Phases, in order (any failure exits non-zero before the result line):
    (48 kHz and 44.1 kHz ragged, 96 kHz) and the bench shape (32 tracks x
    60 s of 48 kHz stereo): sub-block sums rtol 3e-4 / atol 2e-5, true peak
    rtol 2e-6 / atol 1e-7, sample peak exact.
-3. K2 against its plain version at 48 kHz and 44.1 kHz and at the bench
-   shape: at most 1e-3 dB.
+3. K2's resources (registers, shared memory, spills, CTAs per SM), then
+   K2 against its plain version at 48 kHz and 44.1 kHz, one window,
+   b = 1 and b = 33, silence, a full-scale sine at a band centre and the
+   bench shape: at most 1e-3 dB, and two launches bit-identical.
 4. The main path at full size (analyze_batch_native, then
    stft_pooled_frames, on (32, 2, N/128, 128) float32 made on the card
    from a seeded generator): both kernels launched, every output finite
@@ -20,7 +22,11 @@ Phases, in order (any failure exits non-zero before the result line):
 5. The CLI (`analyze --json --spectrogram`) in-process on WAV files this
    script writes: every row complete, K1 and K2 launched.
 6. Timings with CUDA events: K1 and K2 against their plain versions at
-   the bench shape, and the main path's audio-seconds per second.
+   the bench shape, and the main path's audio-seconds per second; K2's
+   share of the main path's device time (torch.profiler); with
+   --k2-baseline PATH, that K2 source against this one in turns at the
+   bench shape at 48 and 44.1 kHz; torch.fft.fft (cuFFT) of the same
+   windows as a yardstick for the FFT stage.
 7. K3, K4, K5 (ops/iir.py) and K6 (ops/truepeak_stream.py) against their
    plain versions on the card: the CPU tests' cases, then each at its
    configuration's shape (K5 and K6 on a 64-row slice of the library scan
@@ -468,8 +474,181 @@ def streaming_timings(dev, gen, on) -> dict:
     return out
 
 
-def main() -> int:
+def k2_cases(K2, dev) -> None:
+    """3. K2's edge cases against its plain version, each within 1e-3 dB:
+    one window (N = 16384), one track, 33 tracks, 44.1 kHz, silence (every
+    band -150 dB) and a full-scale sine at the centre bin of band 20. A
+    sine leaves every other bin at float32 rounding noise, whose dB value
+    no two FFTs share: there, bands more than 100 dB below the sine's band
+    must read so in both."""
     import torch
+
+    gen = torch.Generator(device=dev)     # leaves the caller's stream as it was
+    gen.manual_seed(SEED + 2)
+    n = 16 * 24 * 128
+    t = torch.arange(n, device=dev, dtype=torch.float64)
+    k0 = 20 * 128 + 64
+    sine = torch.sin(2 * torch.pi * k0 * t / 16384).float()
+    cases = [("nw 1", noise(gen, (2, 2, 128, 128), dev), 48000),
+             ("b 1", noise(gen, (1, 2, 16 * 40, 128), dev), 48000),
+             ("b 33", noise(gen, (33, 2, 16 * 24, 128), dev), 48000),
+             ("44.1 kHz", noise(gen, (3, 2, 16 * 40, 128), dev), 44100),
+             ("silence", torch.zeros((2, 2, 16 * 24, 128), device=dev), 48000),
+             ("sine", torch.stack([sine, 0.5 * sine]).reshape(1, 2, -1, 128), 48000)]
+    for name, fr, rate in cases:
+        got = K2.stft_pooled_frames(fr, rate)
+        want = K2.stft_pooled_frames_plain(fr, rate)
+        again = K2.stft_pooled_frames(fr, rate)
+        torch.cuda.synchronize()
+        b, _, rows, _ = fr.shape
+        nw = rows * 128 // 2048 - 7
+        err = 0.0
+        for part, g, w in zip(("mid", "side"), got, want):
+            require(g.shape == (b, nw, 128), f"K2 {name} {part}: shape {tuple(g.shape)}")
+            if name == "silence":
+                require(bool((g == -150.0).all()), f"K2 silence {part}: not all -150 dB")
+            if name == "sine":
+                top = float(w.max())
+                loud = w > top - 100.0
+                require(bool((g.argmax(-1) == 20).all() and (w.argmax(-1) == 20).all()),
+                        f"K2 sine {part}: loudest band is not band 20")
+                require(bool((g[~loud] < top - 100.0).all()),
+                        f"K2 sine {part}: a band the plain version reads below "
+                        f"{top - 100.0:.1f} dB reads above it")
+                g, w = g[loud], w[loud]
+            err = max(err, check_close(f"K2 {name} {part}", g, w, 0.0, 1e-3))
+        require(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+                f"K2 {name}: two launches differ")
+        print(f"phase k2: {name} shape {tuple(fr.shape)} rate {rate} max abs dB err "
+              f"{err:.3e}, two launches bit-identical ok")
+
+
+def build_k2_baseline(path: str):
+    """Build another version of csrc/stft_pooled.cu into a library of its
+    own. A version that exports ss_stft_pooled_attrs takes this kernel's
+    twiddles (ops/stft_pooled.twiddles_np); an older one, the full
+    (16384, 2) table of the shared-memory kernel before it."""
+    import ctypes
+    import hashlib
+    from pathlib import Path
+
+    from soundscope_tpu_torch.ops import _build
+
+    src = Path(path).resolve()
+    out = _build.BUILD / "k2_baseline" / hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    lib = out / "libk2baseline.so"
+    if not lib.exists():
+        out.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib),
+                        str(src)], check=True, timeout=600)
+    dll = ctypes.CDLL(str(lib))
+    dll.ss_stft_pooled.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                                   ctypes.c_int64] + [ctypes.c_void_p] * 6
+    dll.ss_stft_pooled.restype = ctypes.c_int
+    return dll
+
+
+def k2_ab(K2, base, x, rate, on) -> None:
+    """The baseline K2 and this one on x, timed in turns (baseline, this,
+    this, baseline). The two outputs must agree within 1e-3 dB."""
+    import torch
+
+    b, _, rows, _ = x.shape
+    n = rows * 128
+    nw = n // 2048 - 7
+    hann, g2, tw = K2._device_consts(rate, x.device)
+    if not hasattr(base, "ss_stft_pooled_attrs"):
+        ang = 2.0 * np.pi * np.arange(16384) / 16384
+        tw = torch.from_numpy(np.stack([np.cos(ang), -np.sin(ang)], -1)
+                              .astype(np.float32)).to(x.device)
+    mid = torch.empty((b, nw, 128), device=x.device)
+    side = torch.empty_like(mid)
+
+    def old():
+        err = base.ss_stft_pooled(x.data_ptr(), b, n, nw, hann.data_ptr(), g2.data_ptr(),
+                                  tw.data_ptr(), mid.data_ptr(), side.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"baseline K2: CUDA error {err}")
+
+    def new():
+        return K2.stft_pooled_frames(x, rate)
+
+    got = new()
+    old()
+    torch.cuda.synchronize()
+    check_close(f"K2 vs baseline rate {rate} mid", got[0], mid, 0.0, 1e-3)
+    check_close(f"K2 vs baseline rate {rate} side", got[1], side, 0.0, 1e-3)
+    o1, n1, n2, o2 = (time_ms(old, 5), time_ms(new, 5), time_ms(new, 5), time_ms(old, 5))
+    print(f"timing K2 A/B rate {rate} shape {tuple(x.shape)}: baseline {o1:.4f} ms, "
+          f"this {n1:.4f} ms, this {n2:.4f} ms, baseline {o2:.4f} ms; "
+          f"{(o1 + o2) / (n1 + n2):.2f}x {on}")
+
+
+def cufft_yardstick(x, on) -> None:
+    """torch.fft.fft (cuFFT) of the same packed windows, materialised as a
+    (windows, 16384) complex64 tensor: a yardstick for K2's FFT stage alone
+    (not K2's function, which no single torch call computes)."""
+    import torch
+
+    from soundscope_tpu_torch.ops.spectrum import hann_window
+
+    b, _, rows, _ = x.shape
+    x3 = x.reshape(b, 2, rows * 128)
+    w = hann_window(16384, x.device) * 0.5
+    l, r = x3[:, 0], x3[:, 1]
+    z = torch.complex(((l + r).unfold(-1, 16384, 2048) * w).reshape(-1, 16384),
+                      ((l - r).unfold(-1, 16384, 2048) * w).reshape(-1, 16384))
+    ms = time_ms(lambda: torch.fft.fft(z), 3)
+    print(f"timing cuFFT yardstick torch.fft.fft on {tuple(z.shape)} complex64: "
+          f"{ms:.4f} ms {on}")
+    del z
+    torch.cuda.empty_cache()
+
+
+def device_profile(fn, iters: int, match: str) -> dict:
+    """torch.profiler over iters calls of fn: device kernel time per call,
+    the share of it in kernels whose name contains `match`, the host wall
+    per call, and the device's idle share of that wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.time() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return {}
+    total = sum(b - a for a, b, _ in spans)
+    ours = sum(b - a for a, b, name in spans if match in name)
+    busy, end = 0, None
+    for a, b, _ in spans:            # union of the device intervals
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return {"device_ms": total / 1e3 / iters, "match_ms": ours / 1e3 / iters,
+            "share": ours / total, "wall_ms": wall_us / 1e3 / iters,
+            "idle_share": max(0.0, 1.0 - busy / wall_us)}
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--k2-baseline", metavar="PATH", action="append", default=[],
+                    help="another version of csrc/stft_pooled.cu to time K2 against "
+                         "(repeatable)")
+    baselines = ap.parse_args(argv).k2_baseline
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -527,6 +706,7 @@ def main() -> int:
     k1_err = k1_compare(K1, filt_fn, x_bench, nv_ragged, RATE)
 
     # 3. K2 against its plain version
+    print(f"k2 attributes: {json.dumps(K2.kernel_attributes())}")
     for rate in (48000, 44100):
         fr = noise(gen, (3, 2, 16 * 240, 128), dev)    # 240 hops, 233 windows
         got = K2.stft_pooled_frames(fr, rate)
@@ -536,13 +716,18 @@ def main() -> int:
             check_close(f"K2 rate {rate} {name}", g, w, 0.0, 1e-3)
         print(f"phase k2: rate {rate} shape {tuple(fr.shape)} max abs dB err "
               f"{max(max_err(got[0], want[0]), max_err(got[1], want[1])):.3e} ok")
+    k2_cases(K2, dev)
     got = K2.stft_pooled_frames(x_bench, RATE)
     want = K2.stft_pooled_frames_plain(x_bench, RATE)
+    again = K2.stft_pooled_frames(x_bench, RATE)
     torch.cuda.synchronize()
     k2_err = max(check_close("K2 bench mid", got[0], want[0], 0.0, 1e-3),
                  check_close("K2 bench side", got[1], want[1], 0.0, 1e-3))
-    print(f"phase k2: bench shape {tuple(x_bench.shape)} max abs dB err {k2_err:.3e} ok")
-    del got, want
+    require(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+            "K2 bench: two launches differ")
+    print(f"phase k2: bench shape {tuple(x_bench.shape)} max abs dB err {k2_err:.3e}, "
+          "two launches bit-identical ok")
+    del got, want, again
 
     # 4. the main path at full size
     cfg = MeterConfig(channels=2, rate=RATE, max_blocks=0)
@@ -650,6 +835,22 @@ def main() -> int:
     k2_ms = (k2_ms + time_ms(k2, 5)) / 2
     main_ms = time_ms(main_path, 5)
     audio_s = TRACKS * n_bench / RATE
+    prof = device_profile(main_path, 3, "k2_stft_pooled")
+    if prof:
+        print(f"profile main path: device {prof['device_ms']:.4f} ms per batch, K2 "
+              f"{prof['match_ms']:.4f} ms = {100 * prof['share']:.1f} % of device time; "
+              f"wall {prof['wall_ms']:.4f} ms, idle share {prof['idle_share']:.4f} "
+              f"(torch.profiler, 3 batches) {on}")
+    else:
+        print("profile main path: the trace shows no device time (not measured)")
+    for path in baselines:
+        print(f"timing K2 A/B: baseline {path}")
+        base = build_k2_baseline(path)
+        k2_ab(K2, base, x_bench, RATE, on)
+        k2_ab(K2, base, x_bench, 44100, on)
+    if not baselines:
+        print("timing K2 A/B: no baseline source given (--k2-baseline PATH)")
+    cufft_yardstick(x_bench, on)
     print(f"timing K1 kernel {k1_ms:.4f} ms plain {k1_plain_ms:.4f} ms "
           f"(bench shape {tuple(x_bench.shape)}) {on}")
     print(f"timing K2 kernel {k2_ms:.4f} ms plain {k2_plain_ms:.4f} ms "

@@ -41,6 +41,8 @@ _ENTRIES = (
      [_P] * 5 + [_INT, _I64, _INT, _I64, _I64, _I64] + [_P] * 8),
     # frames, tracks, n, nw, hann, g2, twiddles, mid, side, stream
     ("ss_stft_pooled", [_P, _I64, _I64, _I64] + [_P] * 6),
+    # out[6]: K2's registers, smem, spills, threads, CTAs per SM
+    ("ss_stft_pooled_attrs", [_P]),
     # x, n_valid, coef, weights, taps, factor, b, ch, n, L, group,
     # s_final, s_entry, z, tp_part, sp_part, tp, sp, stream
     ("ss_kweight_energy_rows",

@@ -3,7 +3,7 @@
 `fft_pack2` is the packed FFT of two real signals, the plain version
 inside K2's counterpart (ops/stft.py); the JAX package evaluates it as
 four-step DFT matmuls for the TPU's matrix unit, and K2
-(csrc/stft_pooled.cu) computes its own FFT in shared memory. `rfft_mag` is
+(csrc/stft_pooled.cu) computes its own FFT in registers. `rfft_mag` is
 the display spectrum's magnitude, which the JAX package computes outside
 Pallas with `jnp.fft.rfft`; its TPU-only four-step matmul variant is not
 ported.

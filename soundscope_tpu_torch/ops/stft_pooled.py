@@ -14,14 +14,24 @@ samples at a 2048-sample hop) it computes
 
 The TPU evaluates the FFT as four-step 128x128 DFT matmuls, because its
 matrix unit is its only fast unit: about 50 MFLOP per window. On the H100,
-csrc/stft_pooled.cu runs one CTA of 1024 threads per (track, window): a
-radix-4 decimation-in-time FFT over the 16384 complex f32 values held in
-128 KB of shared memory (about 1 MFLOP per window, in full f32).
+csrc/stft_pooled.cu runs one CTA of 512 threads per (track, window) and a
+register-resident FFT in float32 (about 1.2 MFLOP per window): 16384 =
+32 x 32 x 16, each thread holding 32 complex values, three passes with two
+bank-conflict-free exchanges through shared memory, and the conjugate
+pairs k and -k in one thread, so the split needs no exchange of its own;
+the band max reads the powers back once in bin order. `twiddles_np` gives
+its pass twiddles (6 KB).
 
-What bounds it on the H100: shared-memory traffic of the seven radix-4
-stages (each reads and writes all 128 KB), with one 128 KB CTA per SM.
-Device-memory traffic is small: overlapping windows re-read the input
-8x, mostly from L2.
+What bounds it on the H100 (PERF.md, PR 4): not memory, whose bound is
+under a tenth of its time. It uses 128 registers x 512 threads, the whole
+register file, so one CTA runs per SM and a window's load, passes and
+pool run in turn between barriers; instruction issue and those barriers
+are the likely limit (no profiler of the SMs runs on that machine). At
+the bench shape (32 x 60 s of 48 kHz stereo, 44,768 windows) it takes
+about 3.5 ms, 4.2x its float32 operation bound and less than cuFFT's FFT
+of the same windows alone (about 4.2 ms).
+A persistent variant that prefetches the next hop with cp.async into a
+shared-memory ring measured 2 % faster and was not taken.
 
 All N/2048 - 7 windows are computed: the TPU kernel's truncation to a
 multiple of its window chunk, and the tail fill around it, are not ported.
@@ -58,11 +68,20 @@ def rate_supported(rate: int) -> bool:
     return rate > 2 * C.SPECTRUM_FMAX_HZ
 
 
+def twiddles_np() -> np.ndarray:
+    """The kernel's pass twiddles W^e, W = exp(-2 pi i / WIN), as (768, 2)
+    (cos, -sin) float32 from float64: the fine table W^f (f < 128), the
+    coarse table W^(128 c) (c < 128) and pass 2's W^(32 j) (j < 512)."""
+    e = np.concatenate([np.arange(128), 128 * np.arange(128), 32 * np.arange(512)])
+    ang = 2.0 * np.pi * e.astype(np.float64) / WIN
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=-1).astype(np.float32)
+
+
 @functools.lru_cache(maxsize=None)
 def _consts_np(rate: int):
     """Host constants of the kernel: Hann window (WIN,), squared gain of
-    the bins below Nyquist (WIN/2,), twiddles exp(-2 pi i k / WIN) as
-    (WIN, 2) (cos, -sin) — all float32 from float64."""
+    the bins below Nyquist (WIN/2,), the pass twiddles (768, 2) — all
+    float32 from float64."""
     gain, _, _ = _pooled_gain_plan(WIN, rate, BANDS)
     g2 = (gain.astype(np.float64) ** 2).astype(np.float32)
     if not rate_supported(rate) or np.any(g2[WIN // 2:] > 0.0):
@@ -70,9 +89,7 @@ def _consts_np(rate: int):
             f"stft_pooled_frames: display range reaches Nyquist at rate "
             f"{rate} (needs rate > {2 * C.SPECTRUM_FMAX_HZ}); use "
             "ops/stft.stft_midside_display")
-    ang = 2.0 * np.pi * np.arange(WIN, dtype=np.float64) / WIN
-    tw = np.stack([np.cos(ang), -np.sin(ang)], axis=-1).astype(np.float32)
-    return _hann_np(WIN), np.ascontiguousarray(g2[: WIN // 2]), tw
+    return _hann_np(WIN), np.ascontiguousarray(g2[: WIN // 2]), twiddles_np()
 
 
 @functools.lru_cache(maxsize=None)
@@ -131,3 +148,20 @@ def stft_pooled_frames(frames: torch.Tensor, rate: int):
     _build.raise_on_error(lib, err, "K2 stft_pooled")
     LAUNCHES += 1
     return mid, side
+
+
+def kernel_attributes() -> dict:
+    """The kernel's resources as the CUDA runtime reports them (needs a
+    card): registers per thread, static and dynamic shared memory bytes
+    per CTA, local (spill) bytes per thread, threads per CTA and CTAs
+    resident per SM."""
+    import ctypes
+
+    from soundscope_tpu_torch.ops import _build
+
+    lib = _build.library()
+    out = (ctypes.c_int * 6)()
+    _build.raise_on_error(lib, lib.ss_stft_pooled_attrs(out), "K2 attributes")
+    keys = ("registers", "static_smem", "dynamic_smem", "local_bytes",
+            "threads", "blocks_per_sm")
+    return dict(zip(keys, out))

@@ -83,6 +83,59 @@ def test_k2_kernel_matches_plain(cuda, rate):
         assert float((g - w).abs().max()) < 1e-3
 
 
+def _k2_case(case, cuda):
+    """(frames, rate) of K2's edge cases: one window (N = 16384), one
+    track, 33 tracks, 44.1 kHz, silence, and a full-scale sine at the
+    centre bin of band 20 (left 1, right 0.5)."""
+    if case == "sine":
+        t = np.arange(2048 * 24, dtype=np.float64)
+        s = np.sin(2 * np.pi * (20 * 128 + 64) * t / 16384)
+        x = np.stack([s, 0.5 * s]).astype(np.float32).reshape(1, 2, -1, 128)
+        return torch.from_numpy(x).to(cuda), 48000
+    if case == "silence":
+        return torch.zeros((2, 2, 16 * 24, 128), device=cuda), 48000
+    shape, rate = {"nw1": ((2, 2, 128, 128), 48000), "b1": ((1, 2, 16 * 40, 128), 48000),
+                   "b33": ((33, 2, 16 * 24, 128), 48000),
+                   "44k1": ((3, 2, 16 * 40, 128), 44100)}[case]
+    return (_noise(shape, 11) * 3.0).to(cuda), rate
+
+
+@pytest.mark.parametrize("case", ["nw1", "b1", "b33", "44k1", "silence", "sine"])
+def test_k2_kernel_cases(cuda, case):
+    """Within 1e-3 dB of the plain version. Silence reads -150 dB in every
+    band. Beside a sine every bin is float32 rounding noise, whose dB value
+    no two FFTs share: bands the plain version reads more than 100 dB
+    below the sine's band must read so in the kernel too."""
+    fr, rate = _k2_case(case, cuda)
+    got = K2.stft_pooled_frames(fr, rate)
+    want = K2.stft_pooled_frames_plain(fr, rate)
+    b, _, rows, _ = fr.shape
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (b, rows * 128 // 2048 - 7, 128)
+        if case == "silence":
+            assert bool((g == -150.0).all())
+        if case == "sine":
+            top = float(w.max())
+            loud = w > top - 100.0
+            assert bool((g.argmax(-1) == 20).all())
+            assert bool((g[~loud] < top - 100.0).all())
+            g, w = g[loud], w[loud]
+        assert float((g - w).abs().max()) < 1e-3
+
+
+def test_k2_two_launches_bit_identical(cuda):
+    fr = _noise((3, 2, 16 * 40, 128), 12).to(cuda)
+    a = K2.stft_pooled_frames(fr, 48000)
+    b = K2.stft_pooled_frames(fr, 48000)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_k2_kernel_attributes(cuda):
+    attrs = K2.kernel_attributes()
+    assert attrs["threads"] == 512 and attrs["blocks_per_sm"] >= 1
+    assert attrs["dynamic_smem"] == 2 * 16384 * 4 + 768 * 8
+
+
 def test_engine_cuda_matches_cpu(cuda):
     cfg = MeterConfig(channels=2, rate=48000, max_blocks=0)
     x = _noise((2, 2, 2048, 128), 5)
