@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--k2-baseline PATH ...]
+    python3 chip_smoke.py
 
 Phases, in order (any failure exits non-zero before the result line):
 
@@ -23,10 +23,8 @@ Phases, in order (any failure exits non-zero before the result line):
    script writes: every row complete, K1 and K2 launched.
 6. Timings with CUDA events: K1 and K2 against their plain versions at
    the bench shape, and the main path's audio-seconds per second; K2's
-   share of the main path's device time (torch.profiler); with
-   --k2-baseline PATH, that K2 source against this one in turns at the
-   bench shape at 48 and 44.1 kHz; torch.fft.fft (cuFFT) of the same
-   windows as a yardstick for the FFT stage.
+   share of the main path's device time (torch.profiler); torch.fft.fft
+   (cuFFT) of the same windows as a yardstick for the FFT stage.
 7. K3, K4, K5 (ops/iir.py) and K6 (ops/truepeak_stream.py) against their
    plain versions on the card: the CPU tests' cases, then each at its
    configuration's shape (K5 and K6 on a 64-row slice of the library scan
@@ -523,67 +521,6 @@ def k2_cases(K2, dev) -> None:
               f"{err:.3e}, two launches bit-identical ok")
 
 
-def build_k2_baseline(path: str):
-    """Build another version of csrc/stft_pooled.cu into a library of its
-    own. A version that exports ss_stft_pooled_attrs takes this kernel's
-    twiddles (ops/stft_pooled.twiddles_np); an older one, the full
-    (16384, 2) table of the shared-memory kernel before it."""
-    import ctypes
-    import hashlib
-    from pathlib import Path
-
-    from soundscope_tpu_torch.ops import _build
-
-    src = Path(path).resolve()
-    out = _build.BUILD / "k2_baseline" / hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    lib = out / "libk2baseline.so"
-    if not lib.exists():
-        out.mkdir(parents=True, exist_ok=True)
-        subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib),
-                        str(src)], check=True, timeout=600)
-    dll = ctypes.CDLL(str(lib))
-    dll.ss_stft_pooled.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                                   ctypes.c_int64] + [ctypes.c_void_p] * 6
-    dll.ss_stft_pooled.restype = ctypes.c_int
-    return dll
-
-
-def k2_ab(K2, base, x, rate, on) -> None:
-    """The baseline K2 and this one on x, timed in turns (baseline, this,
-    this, baseline). The two outputs must agree within 1e-3 dB."""
-    import torch
-
-    b, _, rows, _ = x.shape
-    n = rows * 128
-    nw = n // 2048 - 7
-    hann, g2, tw = K2._device_consts(rate, x.device)
-    if not hasattr(base, "ss_stft_pooled_attrs"):
-        ang = 2.0 * np.pi * np.arange(16384) / 16384
-        tw = torch.from_numpy(np.stack([np.cos(ang), -np.sin(ang)], -1)
-                              .astype(np.float32)).to(x.device)
-    mid = torch.empty((b, nw, 128), device=x.device)
-    side = torch.empty_like(mid)
-
-    def old():
-        err = base.ss_stft_pooled(x.data_ptr(), b, n, nw, hann.data_ptr(), g2.data_ptr(),
-                                  tw.data_ptr(), mid.data_ptr(), side.data_ptr(),
-                                  torch.cuda.current_stream().cuda_stream)
-        require(err == 0, f"baseline K2: CUDA error {err}")
-
-    def new():
-        return K2.stft_pooled_frames(x, rate)
-
-    got = new()
-    old()
-    torch.cuda.synchronize()
-    check_close(f"K2 vs baseline rate {rate} mid", got[0], mid, 0.0, 1e-3)
-    check_close(f"K2 vs baseline rate {rate} side", got[1], side, 0.0, 1e-3)
-    o1, n1, n2, o2 = (time_ms(old, 5), time_ms(new, 5), time_ms(new, 5), time_ms(old, 5))
-    print(f"timing K2 A/B rate {rate} shape {tuple(x.shape)}: baseline {o1:.4f} ms, "
-          f"this {n1:.4f} ms, this {n2:.4f} ms, baseline {o2:.4f} ms; "
-          f"{(o1 + o2) / (n1 + n2):.2f}x {on}")
-
-
 def cufft_yardstick(x, on) -> None:
     """torch.fft.fft (cuFFT) of the same packed windows, materialised as a
     (windows, 16384) complex64 tensor: a yardstick for K2's FFT stage alone
@@ -639,16 +576,8 @@ def device_profile(fn, iters: int, match: str) -> dict:
             "idle_share": max(0.0, 1.0 - busy / wall_us)}
 
 
-def main(argv=None) -> int:
-    import argparse
-
+def main() -> int:
     import torch
-
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--k2-baseline", metavar="PATH", action="append", default=[],
-                    help="another version of csrc/stft_pooled.cu to time K2 against "
-                         "(repeatable)")
-    baselines = ap.parse_args(argv).k2_baseline
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -843,13 +772,6 @@ def main(argv=None) -> int:
               f"(torch.profiler, 3 batches) {on}")
     else:
         print("profile main path: the trace shows no device time (not measured)")
-    for path in baselines:
-        print(f"timing K2 A/B: baseline {path}")
-        base = build_k2_baseline(path)
-        k2_ab(K2, base, x_bench, RATE, on)
-        k2_ab(K2, base, x_bench, 44100, on)
-    if not baselines:
-        print("timing K2 A/B: no baseline source given (--k2-baseline PATH)")
     cufft_yardstick(x_bench, on)
     print(f"timing K1 kernel {k1_ms:.4f} ms plain {k1_plain_ms:.4f} ms "
           f"(bench shape {tuple(x_bench.shape)}) {on}")

@@ -105,9 +105,12 @@ def test_k2_kernel_cases(cuda, case):
     """Within 1e-3 dB of the plain version. Silence reads -150 dB in every
     band. Beside a sine every bin is float32 rounding noise, whose dB value
     no two FFTs share: bands the plain version reads more than 100 dB
-    below the sine's band must read so in the kernel too."""
+    below the sine's band must read so in the kernel too. Two launches on
+    the same input agree bit for bit."""
     fr, rate = _k2_case(case, cuda)
     got = K2.stft_pooled_frames(fr, rate)
+    again = K2.stft_pooled_frames(fr, rate)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
     want = K2.stft_pooled_frames_plain(fr, rate)
     b, _, rows, _ = fr.shape
     for g, w in zip(got, want):
@@ -121,13 +124,6 @@ def test_k2_kernel_cases(cuda, case):
             assert bool((g[~loud] < top - 100.0).all())
             g, w = g[loud], w[loud]
         assert float((g - w).abs().max()) < 1e-3
-
-
-def test_k2_two_launches_bit_identical(cuda):
-    fr = _noise((3, 2, 16 * 40, 128), 12).to(cuda)
-    a = K2.stft_pooled_frames(fr, 48000)
-    b = K2.stft_pooled_frames(fr, 48000)
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def test_k2_kernel_attributes(cuda):
