@@ -6,10 +6,12 @@
 Phases, in order (any failure exits non-zero before the result line):
 
 1. CUDA present; build the kernels (K1-K7) from soundscope_tpu_torch/csrc.
-2. K1 against its plain PyTorch version on the card: the CPU tests' cases
+2. K1's resources (registers, shared memory, spills, CTAs per SM), then
+   K1 against its plain PyTorch version on the card: the CPU tests' cases
    (48 kHz and 44.1 kHz ragged, 96 kHz) and the bench shape (32 tracks x
    60 s of 48 kHz stereo): sub-block sums rtol 3e-4 / atol 2e-5, true peak
-   rtol 2e-6 / atol 1e-7, sample peak exact.
+   rtol 2e-6 / atol 1e-7, sample peak exact; two launches at the bench
+   shape bit-identical.
 3. K2's resources (registers, shared memory, spills, CTAs per SM), then
    K2 against its plain version at 48 kHz and 44.1 kHz, one window,
    b = 1 and b = 33, silence, a full-scale sine at a band centre and the
@@ -24,13 +26,15 @@ Phases, in order (any failure exits non-zero before the result line):
 6. Timings with CUDA events: K1 and K2 against their plain versions at
    the bench shape, and the main path's audio-seconds per second; K2's
    share of the main path's device time (torch.profiler); torch.fft.fft
-   (cuFFT) of the same windows as a yardstick for the FFT stage.
+   (cuFFT) of the same windows as a yardstick for the FFT stage; the
+   operations of the 4D engine path that synchronise the host
+   (torch.cuda.set_sync_debug_mode("warn")).
 7. K3, K4, K5 (ops/iir.py) and K6 (ops/truepeak_stream.py) against their
    plain versions on the card: the CPU tests' cases, then each at its
    configuration's shape (K5 and K6 on a 64-row slice of the library scan
    at full length). z per group rtol 1e-3 / atol 1e-6 * max|z|, sub-block
    sums rtol 3e-4 / atol 2e-5, true peak rtol 2e-6 / atol 1e-7, sample
-   peak exact.
+   peak exact. K5's resources, and two launches on the slice bit-identical.
 8. The rows-layout engine path in three configurations at full size, each
    with the launch counts set to 0 just before and read just after:
    the 1,000-track library scan (rows (2000, 720000) through
@@ -39,12 +43,16 @@ Phases, in order (any failure exits non-zero before the result line):
    track at 192 kHz through analyze_array (K4); shapes, finiteness, and a
    small slice against the plain path on the CPU.
 9. Timings with CUDA events: K3-K6 against their plain versions, K4 and
-   K5 both at the library shape, the library scan in ms per scan and
-   tracks per second, the single-file path in ms.
+   K5 both at the library shape, K5 at K4's 5.1 shape, the library scan
+   in ms per scan and tracks per second, the single-file path in ms.
 10. K7 (ops/iir.block_iir_stream) against its plain version on the card:
    the CPU tests' cases, then the 60 Hz tick (2, 800), the 1 s slab
    (2, 44100) and the 5.1 slab (6, 192000), each from a random carried
-   state: y and s_final within 2e-5 per unit RMS of x.
+   state: y and s_final within 2e-5 per unit RMS of x. Then, at those
+   three shapes and 64 seeds each (x and the carried state drawn anew per
+   seed), K7 and its plain version against a float64 evaluation of the
+   same filter: the kernel within 2e-5 per unit RMS of x in y and s_final,
+   each side's largest error printed.
 11. The streaming path at full size, the launch counts set to 0 before
    each run and read after, every meter push of a device tensor under
    torch.cuda.set_sync_debug_mode("error"): the mic simulation
@@ -284,6 +292,93 @@ def k7_phase(dev, gen, on) -> tuple[float, float]:
         print(f"phase k7: rate {rate} shape {shape} y max abs err {ey:.3e} "
               f"s_final {es:.3e} (tol {tol:.2e}) ok {on}")
     return worst, worst_rel
+
+
+def float64_filter(filt, dev):
+    """The filter's blocked matrices (ops/biquad.BlockFilter's layout, block
+    128) in float64, from its float64 modal realisation, on dev."""
+    import dataclasses
+
+    import torch
+
+    A, B, C, n = filt.A, filt.Bv, filt.Cv, 128
+    pows = [np.eye(4)]
+    for _ in range(n):
+        pows.append(pows[-1] @ A)
+    h = np.array([filt.D] + [C @ pows[m - 1] @ B for m in range(1, n)])
+    Tt = np.zeros((n, n))
+    for k in range(n):
+        Tt[k, k:] = h[: n - k]
+    Wt = np.stack([pows[n - 1 - k] @ B for k in range(n)])
+    Ot = np.stack([C @ pows[m] for m in range(n)], axis=1)
+
+    def dev64(a):
+        return torch.from_numpy(np.asarray(a, np.float64)).to(dev)
+
+    return dataclasses.replace(filt, Tt=dev64(Tt), Wt=dev64(Wt), Ot=dev64(Ot),
+                               A_pows=dev64(np.stack(pows)))
+
+
+def k7_float64_check(dev, on, seeds: int = 64) -> dict:
+    """10. K7 and its plain version against a float64 evaluation of the
+    same filter (ops/biquad.block_iir on float64 block matrices) at the
+    three configuration shapes, one draw of x (RMS 0.3) and of the carried
+    state per seed; returns each side's largest error per unit RMS of x
+    per shape."""
+    import torch
+
+    from soundscope_tpu_torch.ops import biquad
+    from soundscope_tpu_torch.ops import iir as IIR
+    from soundscope_tpu_torch.ops.kweight import kweight_cascade_ss
+
+    out = {}
+    for rate, shape in ((48000, (2, 800)), (44100, (2, 44100)), (192000, (6, 192000))):
+        filt = biquad.make_block_filter(kweight_cascade_ss(rate), 128, dev)
+        xs, ss = [], []
+        for seed in range(seeds):
+            g = torch.Generator(device=dev)
+            g.manual_seed(SEED + 100 + seed)
+            xs.append(torch.randn(shape, generator=g, device=dev) * 0.3)
+            ss.append(torch.randn((shape[0], 4), generator=g, device=dev) * 0.1)
+        x, s0 = torch.stack(xs), torch.stack(ss)
+        yk, sk = IIR.block_iir_stream(filt, x, s0)
+        yp, sp = IIR.block_iir_stream_plain(filt, x, s0)
+        yt, st = biquad.block_iir(float64_filter(filt, dev), x.double(), s0.double())
+        rms = x.double().pow(2).mean(dim=(1, 2)).sqrt()
+
+        def rel(a, b):
+            return float(((a.double() - b).abs().amax(dim=(1, 2)) / rms).max())
+
+        errs = {"kernel_y": rel(yk, yt), "kernel_s": rel(sk, st),
+                "plain_y": rel(yp, yt), "plain_s": rel(sp, st)}
+        out[f"{rate} {shape}"] = errs
+        print(f"phase k7 float64: rate {rate} shape {shape} over {seeds} seeds, largest "
+              f"error per unit RMS of x: kernel y {errs['kernel_y']:.3e} s_final "
+              f"{errs['kernel_s']:.3e}, plain y {errs['plain_y']:.3e} s_final "
+              f"{errs['plain_s']:.3e} (pin 2e-05) {on}")
+        del x, s0, yk, sk, yp, sp, yt, st
+    torch.cuda.empty_cache()
+    return out
+
+
+def sync_sources(fn) -> list:
+    """The Python lines at which fn's operations synchronise the host with
+    the device (torch.cuda.set_sync_debug_mode("warn")); [] when none do."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    here = os.path.dirname(os.path.abspath(__file__))
+    return sorted({f"{os.path.relpath(w.filename, here)}:{w.lineno}" for w in caught
+                   if "synchronizing CUDA operation" in str(w.message)})
 
 
 def streaming_phase(dev, gen, on) -> dict:
@@ -623,6 +718,9 @@ def main() -> int:
     nc_bench = n_bench // 128
 
     # 2. K1 against its plain version
+    for factor in (4, 2):
+        print(f"k1 attributes (factor {factor}, T 8192): "
+              f"{json.dumps(K1.kernel_attributes(factor, 8192))}")
     for rate, b, ragged in [(48000, 3, True), (44100, 3, True), (96000, 2, False)]:
         x4 = noise(gen, (b, 2, 512, 128), dev)
         n = 512 * 128
@@ -633,6 +731,13 @@ def main() -> int:
     nv_ragged = nv_bench.clone()
     nv_ragged[1::4] -= 48000 * 7 + 333
     k1_err = k1_compare(K1, filt_fn, x_bench, nv_ragged, RATE)
+    f48 = filt_fn(RATE)
+    a = K1.kweight_energy_tp_chunked(f48, x_bench, nv_ragged, (1.0, 1.0), RATE, 4800)
+    b = K1.kweight_energy_tp_chunked(f48, x_bench, nv_ragged, (1.0, 1.0), RATE, 4800)
+    torch.cuda.synchronize()
+    require(all(torch.equal(u, v) for u, v in zip(a, b)), "K1 bench: two launches differ")
+    del a, b
+    print("phase k1: bench shape, two launches bit-identical ok")
 
     # 3. K2 against its plain version
     print(f"k2 attributes: {json.dumps(K2.kernel_attributes())}")
@@ -773,6 +878,9 @@ def main() -> int:
     else:
         print("profile main path: the trace shows no device time (not measured)")
     cufft_yardstick(x_bench, on)
+    syncs = sync_sources(lambda: analyze_batch_native(cfg, x_bench, nv_bench))
+    print(f"sync main path: analyze_batch_native on the 4D bench input synchronises the "
+          f"host at {syncs if syncs else 'no operation'}")
     print(f"timing K1 kernel {k1_ms:.4f} ms plain {k1_plain_ms:.4f} ms "
           f"(bench shape {tuple(x_bench.shape)}) {on}")
     print(f"timing K2 kernel {k2_ms:.4f} ms plain {k2_plain_ms:.4f} ms "
@@ -816,6 +924,13 @@ def main() -> int:
     lib_errs = rows_compare(IIR, K6, filt_fn(48000), x_slice, nv_slice, 48000, 32,
                             ["K4", "K5", "K6"])
     errs["K5"], errs["K6"] = lib_errs["K5"], lib_errs["K6"]
+    print(f"k5 attributes (T {IIR.CHAIN_TILE}): {json.dumps(IIR.chain_attributes())}")
+    w2 = (1.0, 1.0)
+    za = IIR.kweight_energy_chain(filt_fn(48000), x_slice, nv_slice, w2, 32)
+    zb = IIR.kweight_energy_chain(filt_fn(48000), x_slice, nv_slice, w2, 32)
+    require(torch.equal(za, zb), "K5 library slice: two launches differ")
+    print("phase rows: K5 library slice, two launches bit-identical ok")
+    del za, zb
 
     # 8. the rows-layout engine path in three configurations at full size
     def require_finite(what, res, lead, ch):
@@ -920,6 +1035,7 @@ def main() -> int:
     k4_ms, k4_plain_ms = pair(
         lambda: IIR.kweight_energy_prefix(f192, x_51, nv_51, w6, 32),
         lambda: IIR.kweight_energy_prefix_plain(f192, x_51, nv_51, w6, 32), 5, 2)
+    k5_at_k4_ms = time_ms(lambda: IIR.kweight_energy_chain(f192, x_51, nv_51, w6, 32), 5)
     k4_slice_ms, k4_slice_plain_ms = pair(
         lambda: IIR.kweight_energy_prefix(f48, x_slice, nv_slice, w2, 32),
         lambda: IIR.kweight_energy_prefix_plain(f48, x_slice, nv_slice, w2, 32), 5, 2)
@@ -951,6 +1067,8 @@ def main() -> int:
           f"(single-file shape {tuple(x_single.shape)}) {on}")
     print(f"timing K4 kernel {k4_ms:.4f} ms plain {k4_plain_ms:.4f} ms "
           f"(5.1 shape {tuple(x_51.shape)}) {on}")
+    print(f"timing K5 (the tile-scan core) {k5_at_k4_ms:.4f} ms at K4's 5.1 shape "
+          f"{tuple(x_51.shape)} {on}")
     print(f"timing K4 kernel {k4_slice_ms:.4f} ms plain {k4_slice_plain_ms:.4f} ms "
           f"({slice_shape}) {on}")
     print(f"timing K5 kernel {k5_ms:.4f} ms plain {k5_plain_ms:.4f} ms ({slice_shape}) {on}")
@@ -967,6 +1085,9 @@ def main() -> int:
 
     # 10.-12. K7 and the streaming path
     k7_err, k7_err_rel = k7_phase(dev, gen, on)
+    for shape, e in k7_float64_check(dev, on).items():
+        require(e["kernel_y"] <= 2e-5 and e["kernel_s"] <= 2e-5,
+                f"K7 at {shape} off the float64 evaluation: {e}")
     stream = streaming_phase(dev, gen, on)
     print(f"streaming: mic simulation {60 / stream['mic_wall_s']:.1f} audio-s/s with a "
           f"frame() every tick; 240 s track {240 / stream['slab_wall_s']:.1f} audio-s/s "

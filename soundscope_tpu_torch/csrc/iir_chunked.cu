@@ -4,126 +4,268 @@
 // (kernel body _chunked_kernel_factory). The TPU kernel walks its grid in
 // order and carries the filter state, the previous chunk and the running
 // maxima in VMEM from one grid step to the next. CUDA blocks run in no
-// order, so this file splits time into steps of L samples (L = 128 * 2^k,
-// L <= h, so at most one 100 ms boundary per step) and runs four passes:
+// order; K1 runs the tile-scan core of iir_tile.cuh instead, one launch
+// that reads the input once:
 //
-//   1. zero_state_pass  one thread per (row, step): filter the step from a
-//                       zero state, write its final 4-state;
-//   2. prefix_pass      one thread per row: s_entry[j+1] = A^L s_entry[j] +
-//                       s_final0[j] (A^L built on the host in float64);
-//   3. k1_correct       one thread per (row, step): refilter from s_entry[j];
-//                       z = w_ch * y^2 masked at n_valid, summed in float64
-//                       in sample order into (step total, energy before the
-//                       step's boundary); the polyphase FIR over the same
-//                       samples with a halo of KP-1 raw samples before the
-//                       span; partial true and sample peaks per (row, step);
-//   4. peaks_pass       one warp per row: deterministic max of the partial
-//                       peaks, tp = max(tp, sp).
+//   k1_tile     a CTA per segment of T samples of a row (T = max(L, 8192),
+//               a multiple of the step L = 128 * 2^k <= h, so at most one
+//               100 ms boundary per step), its entry state chained from the
+//               previous segment's CTA; each thread refilters its 32
+//               samples from shared memory, sums z = w_ch * y^2 masked at
+//               n_valid in float32 into (step total, energy before the
+//               step's boundary) and runs the polyphase FIR over the same
+//               samples with the halo of KP-1 raw samples before them; the
+//               steps' sums are added in a fixed order in float64, the
+//               partial peaks per (row, segment) reduced by
+//   peaks_pass  one warp per row: deterministic max, tp = max(tp, sp).
 //
-// Passes 1, 2 and 4, the filter and the FIR are shared with K3-K6
-// (iir_common.cuh). The filter runs sample by sample in the modal
-// realisation (block-diagonal A, ops/biquad.py:modal_form), which stays
-// exact in float32; the direct form would drift.
-//
-// Bound on the H100: device-memory reads of the input in passes 1 and 3.
-// Each thread streams its own contiguous span with 16-byte loads; the
-// lines it touches are reused from L1 by its next loads. Everything else
-// it writes is a few floats per (row, step). Sample offsets are int64.
+// Bound on the H100: operations. At 4x the FIR's 36 FMAs per sample (of
+// its 52 taps, phase 0 is an impulse and the last tap of the others is
+// zero: k1_span) and the filter's 21 (4 for the matrix-form zero state,
+// 17 for the refilter) come to about 70 instructions per sample against
+// one 4-byte read. The design spends nothing else per sample: the tile is read from
+// shared memory in 16-byte chunks without bank conflicts, constants are
+// kernel parameters (FMA operands from the constant bank, no registers),
+// spans wholly valid and free of a boundary take a path without per-sample
+// masks, and the chain's hop is one 4x4 product per segment. The previous
+// design ran the filter sample by sample on one thread per (row, 4096
+// samples), 352 CTAs of 128 threads at the bench shape, and read the
+// input twice.
+
+#include <cstring>
 
 #include "iir_common.cuh"
+#include "iir_tile.cuh"
 
 namespace {
 
-// F phases of KP taps each (F = 1: no oversampling, sample peak only)
-template <int F, int KP>
-__global__ void __launch_bounds__(THREADS)
-k1_correct(const float* __restrict__ x, const int64_t* __restrict__ n_valid,
-           const float* __restrict__ coef, const float* __restrict__ weights,
-           const float* __restrict__ taps, int64_t rows, int ch, int64_t n,
-           int64_t nsteps, int64_t L, int64_t h,
-           const float* __restrict__ s_entry, float* __restrict__ step_sums,
-           float* __restrict__ tp_part, float* __restrict__ sp_part) {
-  const int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (t >= rows * nsteps) return;
-  const int64_t row = t / nsteps;
-  const int64_t j = t - row * nsteps;
-  const int64_t nv = __ldg(n_valid + row / ch);
-  const float w = __ldg(weights + row % ch);
-  Filter f;
-  load_filter(coef, f);
-  Fir<(F > 1 ? F : 1), KP> fir;
-  if (F > 1) fir.load(taps);
-
-  float s[NS];
+// Refilters the thread's 32 samples (tile row r) from s; sums z into tot
+// and, for samples before `cut`, into left; the FIR (F > 1) over the
+// samples with the halo from row r - 1. MASK: some sample is at or past
+// n_valid, or the step's boundary cuts the span.
+//
+// The FIR runs phases 1 .. F-1 over taps 0 .. KP-2. Phase 0 of the BS.1770
+// interpolator is a unit impulse (its other taps are under 4e-17), so its
+// outputs are input samples, which the sample peak already takes (tp =
+// max(tp, sp), within 1e-16 of the full sum); the last tap of the other
+// phases is zero. The wrapper checks both on the taps it passes.
+template <int F, int KP, bool MASK>
+__device__ __forceinline__ void k1_span(const TileArgs& a, const float4* tile, int r,
+                                        V4 s, int64_t g0, int64_t nv, float w, int cut,
+                                        float& tot, float& left, float& tp, float& sp) {
+  constexpr int KH = KP > 1 ? KP - 1 : 1;          // taps read per phase
+  const TileConsts& k = a.k;
+  // hist[t] = x at (g - t) once sample g is in; before the first sample it
+  // holds x at (g0 - 1 - t), the last KH - 1 samples of row r - 1
+  float hist[KH];
+  if (F > 1) {
+    constexpr int c0 = (TS - (KH - 1)) / 4;
 #pragma unroll
-  for (int i = 0; i < NS; ++i) s[i] = s_entry[t * NS + i];
+    for (int c = c0; c < 8; ++c) {
+      const float4 h4 = tile[tile_slot(r - 1, c)];
+      const float hs[4] = {h4.x, h4.y, h4.z, h4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (TS - 1 - (4 * c + i) < KH - 1) hist[TS - 1 - (4 * c + i)] = hs[i];
+    }
+  }
+#pragma unroll 4
+  for (int c = 0; c < 8; ++c) {
+    const float4 x4 = tile[tile_slot(r, c)];
+    const float xs[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = 4 * c + i;
+      const float x = xs[i];
+      const float y = step_filter(k, s, x);
+      const float z = w * (y * y);
+      const bool valid = !MASK || g0 + j < nv;
+      if (MASK) {
+        tot += valid ? z : 0.f;
+        left += (valid && j < cut) ? z : 0.f;
+        sp = fmaxf(sp, valid ? fabsf(x) : 0.f);
+      } else {
+        tot += z;
+        sp = fmaxf(sp, fabsf(x));
+      }
+      if (F > 1) {
+#pragma unroll
+        for (int t = KH - 1; t > 0; --t) hist[t] = hist[t - 1];
+        hist[0] = x;
+#pragma unroll
+        for (int p = 1; p < F; ++p) {
+          float acc = 0.f;
+#pragma unroll
+          for (int t = KH - 1; t >= 0; --t) acc = fmaf(a.taps[p * KP + t], hist[t], acc);
+          tp = fmaxf(tp, valid ? fabsf(acc) : 0.f);
+        }
+      }
+    }
+  }
+  if (!MASK && cut >= TS) left = tot;
+}
 
-  const int64_t start = j * L;
-  // the first 100 ms boundary at or after the step start, if inside it
-  int64_t bound = ((start + h - 1) / h) * h;
-  if (bound > start + L) bound = start + L;
-  const float* xr = x + row * n;
+// CTAs of at most PMAX threads: 256 (T = 8192, the steps of 48 and 44.1
+// kHz) with at least MINB of them resident per SM, or 512 (T = 16384)
+constexpr int K1_MINB = 2;
 
-  if (F > 1) fir.reset(xr, start, nv);
+template <int F, int KP, int PMAX>
+__global__ void __launch_bounds__(PMAX, PMAX == 256 ? K1_MINB : 1)
+k1_tile(const __grid_constant__ TileArgs a) {
+  extern __shared__ float4 tiles[];
+  __shared__ double red[TILE_MAX_WARPS][2];
+  __shared__ float pk[TILE_MAX_WARPS][2];
+  tile_loop(a, tiles, F > 1, [](int64_t ar) { return ar; },
+            [&](const TileScan& ts, const float4* tile) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, P = blockDim.x;
+    const int64_t g0 = ts.start + (int64_t)TS * tid;
+    const int64_t nv = __ldg(a.n_valid + ts.row / a.ch);
+    const float w = a.weights[ts.row % a.ch];
 
-  double tot = 0.0, left = 0.0;
-  float sp = 0.f;
-  stream_samples(xr, start, L, [&](int64_t g, float xv) {
-    const float y = output(f, s, xv);
-    advance(f, s, xv);
-    const bool valid = g < nv;
-    const float z = valid ? (y * y) * w : 0.f;
-    tot += (double)z;
-    if (g < bound) left += (double)z;
-    const float xm = valid ? xv : 0.f;
-    sp = fmaxf(sp, fabsf(xm));
-    if (F > 1) fir.push(xm, valid);
+    float tot = 0.f, left = 0.f, tp = 0.f, sp = 0.f;
+    if (g0 < a.n && g0 < nv) {
+      const int64_t s0 = (g0 / a.L) * a.L;
+      int64_t bound = ((s0 + a.h - 1) / a.h) * a.h;
+      if (bound > s0 + a.L) bound = s0 + a.L;
+      const int64_t c = bound - g0;
+      const int cut = c <= 0 ? 0 : (c >= TS ? TS : (int)c);
+      if (g0 + TS <= nv && (cut == 0 || cut == TS))
+        k1_span<F, KP, false>(a, tile, tid + 1, ts.entry, g0, nv, w, cut, tot, left, tp, sp);
+      else
+        k1_span<F, KP, true>(a, tile, tid + 1, ts.entry, g0, nv, w, cut, tot, left, tp, sp);
+    }
+
+    // step sums: float32 per thread, then float64 over the step's threads
+    // in a fixed order (an xor butterfly within the warp, then warps in
+    // order)
+    const int per_step = (int)(a.L / TS);          // threads per step, >= 4
+    const int gs = per_step < 32 ? per_step : 32;
+    double dt = tot, dl = left;
+    for (int o = 1; o < gs; o *= 2) {
+      dt += __shfl_xor_sync(0xffffffffu, dt, o);
+      dl += __shfl_xor_sync(0xffffffffu, dl, o);
+    }
+    const int64_t step0 = ts.start / a.L;
+    float* out = a.step_sums + ts.row * a.nsteps * 2;
+    if (per_step <= 32) {
+      const int64_t step = step0 + tid / per_step;
+      if (lane % gs == 0 && step < a.nsteps) {
+        out[2 * step] = (float)dt;
+        out[2 * step + 1] = (float)dl;
+      }
+    } else if (lane == 0) {
+      red[warp][0] = dt;
+      red[warp][1] = dl;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o /= 2) {
+      tp = fmaxf(tp, __shfl_xor_sync(0xffffffffu, tp, o));
+      sp = fmaxf(sp, __shfl_xor_sync(0xffffffffu, sp, o));
+    }
+    if (lane == 0) {
+      pk[warp][0] = tp;
+      pk[warp][1] = sp;
+    }
+    __syncthreads();
+    const int wps = per_step / 32;                 // warps per step, if > 0
+    if (per_step > 32 && tid < P / per_step && step0 + tid < a.nsteps) {
+      double st = 0.0, sl = 0.0;
+      for (int v = tid * wps; v < (tid + 1) * wps; ++v) {
+        st += red[v][0];
+        sl += red[v][1];
+      }
+      out[2 * (step0 + tid)] = (float)st;
+      out[2 * (step0 + tid) + 1] = (float)sl;
+    }
+    if (tid == 0) {
+      float a0 = 0.f, a1 = 0.f;
+      for (int v = 0; v < P / 32; ++v) {
+        a0 = fmaxf(a0, pk[v][0]);
+        a1 = fmaxf(a1, pk[v][1]);
+      }
+      a.tp_part[ts.row * a.nseg + ts.seg] = a0;
+      a.sp_part[ts.row * a.nseg + ts.seg] = a1;
+    }
   });
-  step_sums[t * 2] = (float)tot;
-  step_sums[t * 2 + 1] = (float)left;
-  tp_part[t] = F > 1 ? fir.tp : 0.f;
-  sp_part[t] = sp;
+}
+
+template <int F, int KP, int PMAX>
+cudaError_t launch_k1(const TileArgs& a, int P, int64_t ntickets, cudaStream_t st) {
+  const size_t smem = tile_smem_bytes(P);
+  int grid = 0;
+  cudaError_t e = persistent_grid(k1_tile<F, KP, PMAX>, P, smem, ntickets, &grid);
+  if (e != cudaSuccess) return e;
+  k1_tile<F, KP, PMAX><<<grid, P, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <int F, int KP>
+cudaError_t launch_k1(const TileArgs& a, int P, int64_t ntickets, cudaStream_t st) {
+  return P <= 256 ? launch_k1<F, KP, 256>(a, P, ntickets, st)
+                  : launch_k1<F, KP, 512>(a, P, ntickets, st);
+}
+
+template <int F, int KP>
+void attrs(int P, int* out) {
+  if (P <= 256) kernel_attrs(k1_tile<F, KP, 256>, P, out);
+  else kernel_attrs(k1_tile<F, KP, 512>, P, out);
 }
 
 }  // namespace
 
-// Returns the first CUDA error of the four launches, 0 on success.
+// consts: TileConsts as floats (host memory); taps F x KP (host); weights
+// ch (host). sync: int32 (4 + 4 * rows * nseg), all bits set; tp_part,
+// sp_part (rows, nseg). Returns the first CUDA error, 0 on success.
 extern "C" int ss_kweight_energy_tp(
-    const float* x, const int64_t* n_valid, const float* coef,
-    const float* weights, const float* taps, int factor, int64_t rows, int ch,
-    int64_t n, int64_t L, int64_t h, float* s_final, float* s_entry,
-    float* step_sums, float* tp_part, float* sp_part, float* tp, float* sp,
-    void* stream) {
+    const float* x, const int64_t* n_valid, const float* consts, const float* taps,
+    const float* weights, int factor, int64_t rows, int ch, int64_t n, int64_t L,
+    int64_t h, int64_t T, int* sync, float* step_sums, float* tp_part, float* sp_part,
+    float* tp, float* sp, void* stream) {
   if (factor != 1 && factor != 2 && factor != 4) return (int)cudaErrorInvalidValue;
-  if (L <= 0 || L % 128 != 0 || n % L != 0 || h < L || ch <= 0)
+  if (L <= 0 || L % 128 != 0 || n % L != 0 || h < L || ch <= 0 || ch > TILE_MAX_CH ||
+      T % L != 0 || T % 1024 != 0 || T > 32 * 32 * TILE_MAX_WARPS)
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
-  const int64_t nsteps = n / L;
+  TileArgs a;
+  memcpy(&a.k, consts, sizeof(TileConsts));
+  memset(a.taps, 0, sizeof(a.taps));
+  const int KP = factor == 4 ? 13 : (factor == 2 ? 25 : 0);
+  if (factor > 1) memcpy(a.taps, taps, sizeof(float) * factor * KP);
+  for (int c = 0; c < ch; ++c) a.weights[c] = weights[c];
+  a.x = x;
+  a.n_valid = n_valid;
+  a.sync = sync;
+  a.n = n;
+  a.nseg = (n + T - 1) / T;
+  a.R = rows;
+  a.ch = ch;
+  a.na = ch;
+  a.L = L;
+  a.h = h;
+  a.nsteps = n / L;
+  a.step_sums = step_sums;
+  a.tp_part = tp_part;
+  a.sp_part = sp_part;
+  a.zr = nullptr;
+  const int P = (int)(T / TS);
+  const int64_t ntickets = rows * a.nseg;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
+  if (factor == 4) e = launch_k1<4, 13>(a, P, ntickets, st);
+  else if (factor == 2) e = launch_k1<2, 25>(a, P, ntickets, st);
+  else e = launch_k1<1, 1>(a, P, ntickets, st);
+  if (e != cudaSuccess) return (int)e;
+  peaks_pass<<<blocks_for(rows * 32), THREADS, 0, st>>>(rows, a.nseg, tp_part, sp_part,
+                                                        tp, sp);
+  return (int)cudaGetLastError();
+}
 
-  zero_state_pass<<<blocks_for(rows * nsteps), THREADS, 0, st>>>(
-      x, coef, rows, n, nsteps, L, s_final);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-
-  prefix_pass<<<blocks_for(rows), THREADS, 0, st>>>(coef, rows, nsteps, s_final,
-                                                  s_entry, nullptr);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-
-  const unsigned g = blocks_for(rows * nsteps);
-  if (factor == 4) {
-    k1_correct<4, 13><<<g, THREADS, 0, st>>>(x, n_valid, coef, weights, taps,
-        rows, ch, n, nsteps, L, h, s_entry, step_sums, tp_part, sp_part);
-  } else if (factor == 2) {
-    k1_correct<2, 25><<<g, THREADS, 0, st>>>(x, n_valid, coef, weights, taps,
-        rows, ch, n, nsteps, L, h, s_entry, step_sums, tp_part, sp_part);
-  } else {
-    k1_correct<1, 1><<<g, THREADS, 0, st>>>(x, n_valid, coef, weights, taps,
-        rows, ch, n, nsteps, L, h, s_entry, step_sums, tp_part, sp_part);
-  }
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-
-  peaks_pass<<<blocks_for(rows * 32), THREADS, 0, st>>>(rows, nsteps, tp_part,
-                                                        sp_part, tp, sp);
+// out[6]: registers, static smem, dynamic smem, local (spill) bytes per
+// thread, threads, CTAs per SM of k1_tile at this factor and tile.
+extern "C" int ss_kweight_energy_tp_attrs(int factor, int64_t T, int* out) {
+  const int P = (int)(T / TS);
+  if (factor == 4) attrs<4, 13>(P, out);
+  else if (factor == 2) attrs<2, 25>(P, out);
+  else attrs<1, 1>(P, out);
   return (int)cudaGetLastError();
 }

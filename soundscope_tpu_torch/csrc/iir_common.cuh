@@ -1,6 +1,7 @@
 // Device code shared by the K-weighting energy and true-peak kernels
-// (K1 iir_chunked.cu, K3/K4/K5 iir_rows.cu, K6 truepeak_stream.cu) and the
-// streaming filter (K7 block_iir.cu).
+// (K3/K4 iir_rows.cu, K6 truepeak_stream.cu) and the streaming filter (K7
+// block_iir.cu). K1 and K5 run the tile-scan core of iir_tile.cuh and take
+// only peaks_pass (K1) and the launch helpers from here.
 //
 // All of them solve the 4-state K-weighting recurrence s <- A s + B x,
 // y = C s + D x in the modal realisation (block-diagonal A,

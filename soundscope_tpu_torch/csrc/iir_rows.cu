@@ -21,19 +21,25 @@
 // order: z = (0 + group_c0) + group_c1 + ... . Channels of weight 0 add
 // nothing (K4 does not even filter them); K3 still takes their peaks.
 //
-// K5 ("chain", ss_kweight_energy_chain): one thread per row carries the
-// 4-state sample by sample through the whole row, as the TPU kernel
-// carries it block by block, and writes its row's group sums to zr
-// (b*ch, N/g); a second pass adds the channels in order into z. It reads
-// the input once and has no prefix pass, but its parallelism is one thread
-// per row.
+// K5 ("chain", ss_kweight_energy_chain): the tile-scan core of
+// iir_tile.cuh over the rows of nonzero weight (k5_tile), one launch that
+// reads the input once: a CTA per segment of T = 8192 samples of a row,
+// chained to the previous segment's CTA by its inclusive end state, each
+// thread refiltering 32 samples from shared memory and writing its group
+// sums (g | 32) to zr (b*ch, N/g); a second pass adds the channels in
+// order into z. The previous K5 carried the state sample by sample on one
+// thread per row: 2,000 threads, 16 of the 132 SMs, for the library scan.
 //
 // Bound on the H100: device-memory reads of the input (K3/K4 read it
-// twice, K5 once) and, in K5, the serial chain of about 20 dependent FMA
-// latencies per sample. Each thread streams its own contiguous span
-// (stream_samples keeps the next 128 bytes in flight).
+// twice, K5 once). K3/K4 stream each thread's own contiguous span
+// (stream_samples keeps the next 128 bytes in flight); K5 copies its tiles
+// with cp.async, and its per-sample work (4 FMAs of zero state, 17 of
+// refilter, 3 of energy) stays under the bytes' time.
+
+#include <cstring>
 
 #include "iir_common.cuh"
+#include "iir_tile.cuh"
 
 namespace {
 
@@ -97,46 +103,92 @@ rows_correct(const float* __restrict__ x, const int64_t* __restrict__ n_valid,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-chain_rows(const float* __restrict__ x, const int64_t* __restrict__ n_valid,
-           const float* __restrict__ coef, const float* __restrict__ weights,
-           int64_t rows, int ch, int64_t n, int64_t g, float* __restrict__ zr) {
-  const int64_t row = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (row >= rows) return;
-  const float w = __ldg(weights + row % ch);
-  if (w == 0.f) return;          // the channel sum never reads this row
-  const int64_t nv = __ldg(n_valid + row / ch);
-  Filter f;
-  load_filter(coef, f);
-  float s[NS] = {0.f, 0.f, 0.f, 0.f};
-  float* zo = zr + row * (n / g);
-  double acc = 0.0;
-  int64_t k = 0, gi = 0;
-  stream_samples(x + row * n, 0, n, [&](int64_t gs, float xv) {
-    const float y = output(f, s, xv);
-    advance(f, s, xv);
-    acc += gs < nv ? (double)(w * (y * y)) : 0.0;
-    if (++k == g) {
-      zo[gi] = (float)acc;
-      ++gi;
-      acc = 0.0;
-      k = 0;
+// K5: the tile-scan core over the active rows. Each thread writes its
+// group sums of g | 32 samples (float32, in sample order) into its own row
+// of the tile, whose samples it has read; the CTA then copies the tile's
+// group sums to zr coalesced.
+template <int GLOG, bool MASK>
+__device__ __forceinline__ void k5_span(const TileConsts& k, float4* tile, int r, V4 s,
+                                        int64_t g0, int64_t nv, float w) {
+  float* row = reinterpret_cast<float*>(tile);
+  float acc = 0.f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float4 x4 = tile[tile_slot(r, c)];
+    const float xs[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = 4 * c + i;
+      const float y = step_filter(k, s, xs[i]);
+      const float z = w * (y * y);
+      acc += (!MASK || g0 + j < nv) ? z : 0.f;
+      if (((j + 1) & ((1 << GLOG) - 1)) == 0) {
+        const int q = j >> GLOG;         // <= j: a slot already read
+        row[4 * tile_slot(r, q >> 2) + (q & 3)] = acc;
+        acc = 0.f;
+      }
+    }
+  }
+}
+
+// groups of 2^GLOG samples, GLOG <= 5
+template <int GLOG>
+__global__ void __launch_bounds__(256)
+k5_tile(const __grid_constant__ TileArgs a) {
+  extern __shared__ float4 tiles[];
+  auto row_of = [&](int64_t ar) {
+    const int64_t tr = ar / a.na;
+    return tr * a.ch + a.chans[ar - tr * a.na];
+  };
+  tile_loop(a, tiles, false, row_of, [&](const TileScan& ts, float4* tile) {
+    const int tid = threadIdx.x, P = blockDim.x;
+    const int64_t g0 = ts.start + (int64_t)TS * tid;
+    const int64_t nv = __ldg(a.n_valid + ts.row / a.ch);
+    const float w = a.weights[ts.row % a.ch];
+    if (g0 < a.n) {
+      if (g0 + TS <= nv) k5_span<GLOG, false>(a.k, tile, tid + 1, ts.entry, g0, nv, w);
+      else k5_span<GLOG, true>(a.k, tile, tid + 1, ts.entry, g0, nv, w);
+    }
+    __syncthreads();
+    const float* z = reinterpret_cast<const float*>(tile);
+    constexpr int PLOG = 5 - GLOG;                 // group sums per thread: 2^PLOG
+    const int64_t ng = a.n >> GLOG;
+    const int64_t q0 = ts.start >> GLOG;
+    float* out = a.zr + ts.row * ng;
+    for (int q = tid; q < P << PLOG; q += P) {
+      if (q0 + q >= ng) break;
+      const int r = (q >> PLOG) + 1, p = q & ((1 << PLOG) - 1);
+      out[q0 + q] = z[4 * tile_slot(r, p >> 2) + (p & 3)];
     }
   });
 }
 
+template <int GLOG>
+cudaError_t launch_k5(const TileArgs& a, int P, cudaStream_t st) {
+  const size_t smem = tile_smem_bytes(P);
+  int grid = 0;
+  cudaError_t e = persistent_grid(k5_tile<GLOG>, P, smem, a.R * a.nseg, &grid);
+  if (e != cudaSuccess) return e;
+  k5_tile<GLOG><<<grid, P, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+struct ChanList {
+  int c[TILE_MAX_CH];
+  int n;
+};
+
 // z[track, i] = (0 + zr[c0]) + zr[c1] + ... over the channels of nonzero
 // weight, in channel order (the order rows_correct adds them in)
 __global__ void __launch_bounds__(THREADS)
-channel_sum(const float* __restrict__ zr, const float* __restrict__ weights,
-            int64_t b, int ch, int64_t ng, float* __restrict__ z) {
+channel_sum(const float* __restrict__ zr, const ChanList cl, int64_t b, int ch,
+            int64_t ng, float* __restrict__ z) {
   const int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
   if (t >= b * ng) return;
   const int64_t track = t / ng;
   const int64_t i = t - track * ng;
   float acc = 0.f;
-  for (int c = 0; c < ch; ++c)
-    if (__ldg(weights + c) != 0.f) acc += zr[(track * ch + c) * ng + i];
+  for (int c = 0; c < cl.n; ++c) acc += zr[(track * ch + cl.c[c]) * ng + i];
   z[t] = acc;
 }
 
@@ -188,23 +240,62 @@ extern "C" int ss_kweight_energy_rows(
   return (int)cudaGetLastError();
 }
 
-// K5. zr (b*ch, n/group) is scratch; z (b, n/group) is written whole.
+// K5. consts: TileConsts as floats, weights ch (host memory). sync: int32
+// (4 + 4 * b * na * nseg), all bits set, with na the channels of nonzero
+// weight; zr (b*ch, n/group) is scratch (rows of weight 0 are not written);
+// z (b, n/group) is written whole. group must divide 32.
 extern "C" int ss_kweight_energy_chain(
-    const float* x, const int64_t* n_valid, const float* coef,
-    const float* weights, int64_t b, int ch, int64_t n, int64_t group,
-    float* zr, float* z, void* stream) {
-  if (n <= 0 || n % 128 != 0 || ch <= 0 || group <= 0 || n % group != 0)
+    const float* x, const int64_t* n_valid, const float* consts, const float* weights,
+    int64_t b, int ch, int64_t n, int64_t group, int64_t T, int* sync, float* zr,
+    float* z, void* stream) {
+  if (n <= 0 || n % 128 != 0 || ch <= 0 || ch > TILE_MAX_CH || group <= 0 ||
+      TS % group != 0 || T % 1024 != 0 || T > 32 * 256)
     return (int)cudaErrorInvalidValue;
   if (b == 0) return 0;
-  const int64_t rows = b * ch;
+  TileArgs a;
+  memcpy(&a.k, consts, sizeof(TileConsts));
+  memset(a.taps, 0, sizeof(a.taps));
+  ChanList cl;
+  cl.n = 0;
+  for (int c = 0; c < ch; ++c) {
+    a.weights[c] = weights[c];
+    if (weights[c] != 0.f) a.chans[cl.n++] = c;
+  }
+  for (int c = 0; c < cl.n; ++c) cl.c[c] = a.chans[c];
+  const int na = cl.n;
   const int64_t ng = n / group;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
+  if (na > 0) {
+    a.x = x;
+    a.n_valid = n_valid;
+    a.sync = sync;
+    a.n = n;
+    a.nseg = (n + T - 1) / T;
+    a.R = b * na;
+    a.ch = ch;
+    a.na = na;
+    a.L = a.h = a.nsteps = 0;
+    a.step_sums = a.tp_part = a.sp_part = nullptr;
+    a.zr = zr;
+    const int P = (int)(T / TS);
+    switch (group) {
+      case 1: e = launch_k5<0>(a, P, st); break;
+      case 2: e = launch_k5<1>(a, P, st); break;
+      case 4: e = launch_k5<2>(a, P, st); break;
+      case 8: e = launch_k5<3>(a, P, st); break;
+      case 16: e = launch_k5<4>(a, P, st); break;
+      default: e = launch_k5<5>(a, P, st); break;
+    }
+    if (e != cudaSuccess) return (int)e;
+  }
+  channel_sum<<<blocks_for(b * ng), THREADS, 0, st>>>(zr, cl, b, ch, ng, z);
+  return (int)cudaGetLastError();
+}
 
-  chain_rows<<<blocks_for(rows), THREADS, 0, st>>>(x, n_valid, coef, weights,
-                                                   rows, ch, n, group, zr);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-
-  channel_sum<<<blocks_for(b * ng), THREADS, 0, st>>>(zr, weights, b, ch, ng, z);
+// out[6]: registers, static smem, dynamic smem, local (spill) bytes per
+// thread, threads, CTAs per SM of k5_tile at this tile and groups of 32.
+extern "C" int ss_kweight_energy_chain_attrs(int64_t T, int* out) {
+  kernel_attrs(k5_tile<5>, (int)(T / TS), out);
   return (int)cudaGetLastError();
 }

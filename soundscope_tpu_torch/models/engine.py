@@ -59,12 +59,11 @@ def rows_plan(n: int, b: int, ch: int, rate: int, block: int) -> tuple[str, bool
 
     The threshold is the port's own, not a VMEM model. It sends the
     library scan (2,000 rows) down the chain and a one-track 5.1 file
-    (6 rows) down the prefix, as the reference's dispatch does. K5 runs one
-    thread per row and reads the input once; K4 runs b * N /
-    span_length(N) threads and reads it twice. On an H100 at the library
-    shape K4 took 6.3 ms and K5 26.2 ms (PERF.md): 2,000 rows are too few
-    for the chain's single read to pay, so the threshold keeps the
-    reference's routes until K5 gains parallelism or the threshold moves.
+    (6 rows) down the prefix, as the reference's dispatch does. K5 runs
+    the tile-scan core (segments of 8,192 samples chained row by row, on
+    every SM) and reads the input once; K4 runs b * N / span_length(N)
+    threads and reads it twice. On an H100 at the library shape K5 takes
+    less time than K4 (PERF.md), so the chain is the faster route there.
 
     K6 runs for the peaks when they are not fused, the rate needs
     oversampling and N % 128 == 0 (at factor 1 the peak is a masked max on

@@ -35,10 +35,12 @@ _I64 = ctypes.c_int64
 _INT = ctypes.c_int
 # C entries of csrc/*.cu: (name, argtypes); each returns a cudaError_t
 _ENTRIES = (
-    # x, n_valid, coef, weights, taps, factor, rows, ch, n, L, h,
-    # s_final, s_entry, step_sums, tp_part, sp_part, tp, sp, stream
+    # x, n_valid, consts, taps, weights (host), factor, rows, ch, n, L, h,
+    # T, sync, step_sums, tp_part, sp_part, tp, sp, stream
     ("ss_kweight_energy_tp",
-     [_P] * 5 + [_INT, _I64, _INT, _I64, _I64, _I64] + [_P] * 8),
+     [_P] * 5 + [_INT, _I64, _INT, _I64, _I64, _I64, _I64] + [_P] * 7),
+    # factor, T, out[6]: K1's registers, smem, spills, threads, CTAs per SM
+    ("ss_kweight_energy_tp_attrs", [_INT, _I64, _P]),
     # frames, tracks, n, nw, hann, g2, twiddles, mid, side, stream
     ("ss_stft_pooled", [_P, _I64, _I64, _I64] + [_P] * 6),
     # out[6]: K2's registers, smem, spills, threads, CTAs per SM
@@ -47,14 +49,17 @@ _ENTRIES = (
     # s_final, s_entry, z, tp_part, sp_part, tp, sp, stream
     ("ss_kweight_energy_rows",
      [_P] * 5 + [_INT, _I64, _INT, _I64, _I64, _I64] + [_P] * 8),
-    # x, n_valid, coef, weights, b, ch, n, group, zr, z, stream
-    ("ss_kweight_energy_chain", [_P] * 4 + [_I64, _INT, _I64, _I64] + [_P] * 3),
+    # x, n_valid, consts, weights (host), b, ch, n, group, T, sync, zr, z,
+    # stream
+    ("ss_kweight_energy_chain", [_P] * 4 + [_I64, _INT, _I64, _I64, _I64] + [_P] * 4),
+    # T, out[6]: K5's resources
+    ("ss_kweight_energy_chain_attrs", [_I64, _P]),
     # x, n_valid_rows, taps, factor, rows, n, L, tp_part, sp_part, tp, sp,
     # stream
     ("ss_true_peak_stream", [_P] * 3 + [_INT, _I64, _I64, _I64] + [_P] * 5),
-    # x, row stride, sample stride, s0, coef, rows, n, L, s_final0, s_entry,
-    # y, s_out, stream
-    ("ss_block_iir_stream", [_P, _I64, _I64, _P, _P, _I64, _I64, _I64] + [_P] * 5),
+    # x, row stride, sample stride, s0, coef, coef_r, wtab, rows, n, L,
+    # s_final0, s_entry, y, s_out, stream
+    ("ss_block_iir_stream", [_P, _I64, _I64, _P, _P, _P, _P, _I64, _I64, _I64] + [_P] * 5),
 )
 
 

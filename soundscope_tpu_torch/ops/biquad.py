@@ -86,6 +86,19 @@ class BlockFilter:
                 self.power(steps).reshape(-1)]).astype(np.float32), device)
         return self._consts[key]
 
+    def weight_table(self, steps: int, device) -> torch.Tensor:
+        """(steps, n) float32 on `device`: row i = A^(steps-1-i) B, the
+        matrix form of a step's zero-state end state (K7). Built in
+        float64 once per (steps, device), uploaded without a host sync."""
+        key = ("w", steps, torch.device(device))
+        if key not in self._consts:
+            rows, p = [], self.Bv.astype(np.float64)
+            for _ in range(steps):
+                rows.append(p)
+                p = self.A @ p
+            self._consts[key] = upload(np.stack(rows[::-1]).astype(np.float32), device)
+        return self._consts[key]
+
 
 @functools.lru_cache(maxsize=None)
 def _build_block_filter_np(ss_key, block: int):

@@ -22,11 +22,14 @@ contribute nothing.
 * `kweight_energy_chain` (K5, replaces `kweight_energy_pallas`,
   ``pallas_iir.py:308``) computes K4's z with a sequential schedule.
 
-On the card (csrc/iir_rows.cu) K3 and K4 reuse K1's split-time passes over
-steps of `span_length(N)` samples, with a correction pass that adds the
-channels' group sums into z in channel order; K5 carries the state sample
-by sample, one thread per row, and adds the channels in a second pass. See
-that file for the design and what bounds it.
+On the card (csrc/iir_rows.cu) K3 and K4 reuse the split-time passes of
+csrc/iir_common.cuh over steps of `span_length(N)` samples, with a
+correction pass that adds the channels' group sums into z in channel
+order; K5 runs K1's tile-scan core (csrc/iir_tile.cuh, ops/iir_tile.py)
+over the rows of nonzero weight, one read of the input with every
+segment's entry state chained from the one before, groups g | 32, and
+adds the channels in order in a second pass. See those files for the
+designs and what bounds them.
 
 K7 (csrc/block_iir.cu, replaces `block_iir_pallas`, pallas_call at
 ``pallas_iir.py:67``) filters with carried state: `block_iir_stream(filt,
@@ -47,11 +50,15 @@ import numpy as np
 import torch
 
 from soundscope_tpu_torch.core import constants as C
+from soundscope_tpu_torch.ops import iir_tile
 from soundscope_tpu_torch.ops.biquad import BlockFilter, block_iir
 from soundscope_tpu_torch.ops.truepeak import _polyphase_taps, true_peak_masked
 
 # kernel launches (one per call of an entry on CUDA)
 LAUNCHES = {"K3": 0, "K4": 0, "K5": 0, "K7": 0}
+
+# K5's segment: samples per CTA of the tile-scan core (csrc/iir_tile.cuh)
+CHAIN_TILE = 8192
 
 # longest step of the split-time kernels (K3, K4) and of K6's spans
 MAX_SPAN = 4096
@@ -214,19 +221,26 @@ def kweight_energy_prefix(filt: BlockFilter, x: torch.Tensor,
 
 def kweight_energy_chain(filt: BlockFilter, x: torch.Tensor,
                          n_valid: torch.Tensor, weights, group: int = 1):
-    """Energy (K5; JAX: kweight_energy_pallas) on the sequential schedule:
-    one carried state per row. Same arguments and result as
-    `kweight_energy_prefix`."""
+    """Energy (K5; JAX: kweight_energy_pallas) on the tile-scan core: one
+    read of the input, segments chained row by row. Same arguments and
+    result as `kweight_energy_prefix`; on CUDA the group divides 32."""
     what = "K5 kweight_energy_chain"
     if x.device.type == "cpu":
         return kweight_energy_chain_plain(filt, x, n_valid, weights, group)
     b, ch, n, nv = _launchable(filt, x, n_valid, weights, what)
-    if group <= 0 or n % group:
-        raise ValueError(f"{what}: group {group} does not divide N = {n}")
+    if group <= 0 or iir_tile.TS % group:
+        raise ValueError(f"{what}: group {group} does not divide {iir_tile.TS}")
+    if not iir_tile.modal_blocks_ok(filt.A):
+        raise ValueError(f"{what} is built for the 4-state K-weighting cascade")
+    if ch > iir_tile.MAX_CH:
+        raise ValueError(f"{what} takes at most {iir_tile.MAX_CH} channels, got {ch}")
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
-    coef = filt.constants(1, dev)
-    w = torch.tensor([float(v) for v in weights], **f32)
+    T = CHAIN_TILE
+    consts = iir_tile.tile_constants(filt, T)
+    w = np.asarray([float(v) for v in weights], np.float32)
+    active = int(np.count_nonzero(w))
+    sync = iir_tile.sync_buffer(b * active, -(-n // T), dev)
     zr = torch.empty((b * ch, n // group), **f32)
     z = torch.empty((b, n // group), **f32)
 
@@ -235,12 +249,30 @@ def kweight_energy_chain(filt: BlockFilter, x: torch.Tensor,
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.ss_kweight_energy_chain(
-            x.data_ptr(), nv.data_ptr(), coef.data_ptr(), w.data_ptr(), b, ch,
-            n, group, zr.data_ptr(), z.data_ptr(),
+            x.data_ptr(), nv.data_ptr(), consts.ctypes.data, w.ctypes.data, b, ch, n,
+            group, T,
+            sync.data_ptr(), zr.data_ptr(), z.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on_error(lib, err, what)
     LAUNCHES["K5"] += 1
     return z
+
+
+def chain_attributes() -> dict:
+    """K5's resources as the CUDA runtime reports them (needs a card):
+    registers per thread, static and dynamic shared memory bytes per CTA,
+    local (spill) bytes per thread, threads per CTA and CTAs per SM."""
+    import ctypes
+
+    from soundscope_tpu_torch.ops import _build
+
+    lib = _build.library()
+    out = (ctypes.c_int * 6)()
+    _build.raise_on_error(
+        lib, lib.ss_kweight_energy_chain_attrs(CHAIN_TILE, out), "K5 attributes")
+    keys = ("registers", "static_smem", "dynamic_smem", "local_bytes",
+            "threads", "blocks_per_sm")
+    return dict(zip(keys, out))
 
 
 def block_iir_stream_plain(filt: BlockFilter, x: torch.Tensor, s0: torch.Tensor):
@@ -278,6 +310,8 @@ def block_iir_stream(filt: BlockFilter, x: torch.Tensor, s0: torch.Tensor):
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     coef = filt.constants(L, dev)
+    coef_r = filt.constants(n - (nsteps - 1) * L, dev)
+    wtab = filt.weight_table(L, dev)
     s_final0 = torch.empty((rows, nsteps, 4), **f32)
     s_entry = torch.empty((rows, nsteps, 4), **f32)
     y = torch.empty((rows, n), **f32)
@@ -289,7 +323,8 @@ def block_iir_stream(filt: BlockFilter, x: torch.Tensor, s0: torch.Tensor):
     with torch.cuda.device(dev):
         err = lib.ss_block_iir_stream(
             x2.data_ptr(), x2.stride(0), x2.stride(1), s0c.data_ptr(),
-            coef.data_ptr(), rows, n, L, s_final0.data_ptr(), s_entry.data_ptr(),
+            coef.data_ptr(), coef_r.data_ptr(), wtab.data_ptr(), rows, n, L,
+            s_final0.data_ptr(), s_entry.data_ptr(),
             y.data_ptr(), s_out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on_error(lib, err, what)

@@ -71,6 +71,56 @@ def test_k1_kernel_matches_plain(cuda, rate, b, ragged):
     np.testing.assert_array_equal(got[2].cpu().numpy(), want[2].cpu().numpy())
 
 
+def _k1_k5_inputs(cuda):
+    n = 96 * 1024
+    x = _noise((3, 2, n), 21).to(cuda)
+    nv = torch.tensor([n, n - 8192 - 777, n // 2 + 5], device=cuda)
+    filt = make_block_filter(kweight_cascade_ss(44100), 128, cuda)
+    return n, x, nv, filt
+
+
+def test_k1_k5_wrappers_do_not_sync_the_host(cuda):
+    """K1, its glue (subblock_sums_from_steps) and K5 enqueue their work
+    without waiting for the device: their constants are kernel parameters
+    or cached device copies made without a host sync."""
+    from soundscope_tpu_torch.ops import _build
+
+    _build.library()
+    n, x, nv, filt = _k1_k5_inputs(cuda)
+    h = 4410
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            steps, _, _ = K1.kweight_energy_tp_chunked(
+                filt, x.reshape(3, 2, -1, 128), nv, (1.0, 1.0), 44100, h)
+            K1.subblock_sums_from_steps(steps, h, K1.step_length(n, h), n)
+            IIR.kweight_energy_chain(filt, x.reshape(6, n), nv, (1.0, 1.0), 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_k1_k5_two_launches_bit_identical(cuda):
+    """The chained scan waits only for inclusive end states and adds every
+    sum in a fixed order, so two launches give the same bits."""
+    n, x, nv, filt = _k1_k5_inputs(cuda)
+    x4 = x.reshape(3, 2, -1, 128)
+    a = K1.kweight_energy_tp_chunked(filt, x4, nv, (1.0, 1.0), 44100, 4410)
+    b = K1.kweight_energy_tp_chunked(filt, x4, nv, (1.0, 1.0), 44100, 4410)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    for group in (1, 32):
+        za = IIR.kweight_energy_chain(filt, x, nv, (1.0, 1.0), group)
+        zb = IIR.kweight_energy_chain(filt, x, nv, (1.0, 1.0), group)
+        assert torch.equal(za, zb)
+
+
+def test_k1_k5_attributes(cuda):
+    for attrs in (K1.kernel_attributes(4, 8192), IIR.chain_attributes()):
+        assert attrs["threads"] == 256 and attrs["blocks_per_sm"] >= 1
+        assert attrs["dynamic_smem"] == 2 * 16 * 8 * 257
+
+
 @pytest.mark.parametrize("rate", [48000, 44100, 96000])
 def test_k2_kernel_matches_plain(cuda, rate):
     fr = _noise((2, 2, 16 * 40, 128), rate).to(cuda) * 3.0
@@ -254,6 +304,8 @@ def test_rows_wrappers_raise_on_what_they_cannot_launch(cuda):
     for fn in (IIR.kweight_energy_prefix, IIR.kweight_energy_chain):
         with pytest.raises(ValueError):
             fn(filt, x, nv, w)
+    with pytest.raises(ValueError):                             # g must divide 32
+        IIR.kweight_energy_chain(filt, torch.zeros((1, 2, 1024), device=cuda), nv, w, 64)
     with pytest.raises(ValueError):
         IIR.kweight_energy_tp_prefix(filt, x, nv, w, 48000)
     xt = torch.zeros((1, 1024, 2), device=cuda).transpose(1, 2)  # not contiguous
