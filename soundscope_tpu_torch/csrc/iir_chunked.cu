@@ -69,7 +69,7 @@ __device__ __forceinline__ void k1_span(const TileArgs& a, const float4* tile, i
         if (TS - 1 - (4 * c + i) < KH - 1) hist[TS - 1 - (4 * c + i)] = hs[i];
     }
   }
-#pragma unroll 4
+#pragma unroll
   for (int c = 0; c < 8; ++c) {
     const float4 x4 = tile[tile_slot(r, c)];
     const float xs[4] = {x4.x, x4.y, x4.z, x4.w};

@@ -23,7 +23,7 @@
 //
 // K5 ("chain", ss_kweight_energy_chain): the tile-scan core of
 // iir_tile.cuh over the rows of nonzero weight (k5_tile), one launch that
-// reads the input once: a CTA per segment of T = 8192 samples of a row,
+// reads the input once: a CTA per segment of T = 4096 samples of a row,
 // chained to the previous segment's CTA by its inclusive end state, each
 // thread refiltering 32 samples from shared memory and writing its group
 // sums (g | 32) to zr (b*ch, N/g); a second pass adds the channels in

@@ -60,7 +60,7 @@ def rows_plan(n: int, b: int, ch: int, rate: int, block: int) -> tuple[str, bool
     The threshold is the port's own, not a VMEM model. It sends the
     library scan (2,000 rows) down the chain and a one-track 5.1 file
     (6 rows) down the prefix, as the reference's dispatch does. K5 runs
-    the tile-scan core (segments of 8,192 samples chained row by row, on
+    the tile-scan core (segments of 4,096 samples chained row by row, on
     every SM) and reads the input once; K4 runs b * N / span_length(N)
     threads and reads it twice. On an H100 at the library shape K5 takes
     less time than K4 (PERF.md), so the chain is the faster route there.

@@ -58,7 +58,7 @@ from soundscope_tpu_torch.ops.truepeak import _polyphase_taps, true_peak_masked
 LAUNCHES = {"K3": 0, "K4": 0, "K5": 0, "K7": 0}
 
 # K5's segment: samples per CTA of the tile-scan core (csrc/iir_tile.cuh)
-CHAIN_TILE = 8192
+CHAIN_TILE = 4096
 
 # longest step of the split-time kernels (K3, K4) and of K6's spans
 MAX_SPAN = 4096

@@ -116,9 +116,10 @@ def test_k1_k5_two_launches_bit_identical(cuda):
 
 
 def test_k1_k5_attributes(cuda):
-    for attrs in (K1.kernel_attributes(4, 8192), IIR.chain_attributes()):
-        assert attrs["threads"] == 256 and attrs["blocks_per_sm"] >= 1
-        assert attrs["dynamic_smem"] == 2 * 16 * 8 * 257
+    for attrs, threads in ((K1.kernel_attributes(4, 8192), 256),
+                           (IIR.chain_attributes(), IIR.CHAIN_TILE // 32)):
+        assert attrs["threads"] == threads and attrs["blocks_per_sm"] >= 1
+        assert attrs["dynamic_smem"] == 2 * 16 * 8 * (threads + 1)
 
 
 @pytest.mark.parametrize("rate", [48000, 44100, 96000])
