@@ -209,7 +209,7 @@ K5_CASES = [(48000, 3, 2, 32), (48000, 3, 2, 1), (44100, 3, 2, 1), (48000, 2, 6,
 
 
 @pytest.mark.parametrize("rate,b,ch,group", K5_CASES)
-def test_k5_algorithm_matches_pallas_interpret(rate, b, ch, group):
+def test_k5_algorithm_matches_pallas_interpret_and_xla(rate, b, ch, group):
     n = 226 * 128
     jf, tf = _filters(rate)
     x = _noise((b, ch, n), rate + 10 * b + ch)
@@ -228,6 +228,12 @@ def test_k5_algorithm_matches_pallas_interpret(rate, b, ch, group):
         return z[:, : nb * hg].reshape(b, nb, hg).astype(np.float64).sum(-1)
 
     np.testing.assert_allclose(sums(got), sums(want), rtol=3e-4, atol=2e-5)
+    # the XLA chain: block_iir, the mask, the weighted square, group sums
+    y, _ = jax.jit(jax_block_iir)(jf, jnp.asarray(x), jnp.zeros((b, ch, 4)))
+    y = jnp.where(jnp.arange(n)[None, None] < jnp.asarray(nv)[:, None, None], y, 0.0)
+    chain = np.asarray(weighted_square(y, jnp.asarray(w))).reshape(b, -1, group).sum(-1)
+    np.testing.assert_allclose(got, chain, rtol=1e-3, atol=1e-6 * np.abs(chain).max())
+    np.testing.assert_allclose(sums(got), sums(chain), rtol=3e-4, atol=2e-5)
     if ch == 6:
         y = x.copy()
         y[:, 3] *= 7.0                              # the LFE adds nothing
