@@ -28,7 +28,8 @@ Phases, in order (any failure exits non-zero before the result line):
    share of the main path's device time (torch.profiler); torch.fft.fft
    (cuFFT) of the same windows as a yardstick for the FFT stage; the
    operations of the 4D engine path that synchronise the host
-   (torch.cuda.set_sync_debug_mode("warn")).
+   (torch.cuda.set_sync_debug_mode("warn"), checked first on a read of a
+   device value, which must show).
 7. K3, K4, K5 (ops/iir.py) and K6 (ops/truepeak_stream.py) against their
    plain versions on the card: the CPU tests' cases, then each at its
    configuration's shape (K5 and K6 on a 64-row slice of the library scan
@@ -878,6 +879,8 @@ def main() -> int:
     else:
         print("profile main path: the trace shows no device time (not measured)")
     cufft_yardstick(x_bench, on)
+    require(sync_sources(lambda: float(x_bench[0, 0, 0, 0])),
+            "sync listing: a device-to-host read was not seen as a sync")
     syncs = sync_sources(lambda: analyze_batch_native(cfg, x_bench, nv_bench))
     print(f"sync main path: analyze_batch_native on the 4D bench input synchronises the "
           f"host at {syncs if syncs else 'no operation'}")
