@@ -8,7 +8,8 @@ Phases, in order (any failure exits non-zero before the result line):
 1. CUDA present; build the kernels (K1-K7) from soundscope_tpu_torch/csrc.
 2. K1's resources (registers, shared memory, spills, CTAs per SM), then
    K1 against its plain PyTorch version on the card: the CPU tests' cases
-   (48 kHz and 44.1 kHz ragged, 96 kHz) and the bench shape (32 tracks x
+   (48 kHz and 44.1 kHz ragged, 96 kHz, 192 kHz ragged with its tiles of
+   16,384 samples) and the bench shape (32 tracks x
    60 s of 48 kHz stereo): sub-block sums rtol 3e-4 / atol 2e-5, true peak
    rtol 2e-6 / atol 1e-7, sample peak exact; two launches at the bench
    shape bit-identical.
@@ -164,16 +165,17 @@ def rows_noise(gen, shape, dev):
 # the tensor cores) per millisecond
 HBM_BYTES_PER_MS = 3.35e12 / 1e3
 F32_OPS_PER_MS = 67e12 / 1e3
-# float32 operations per sample, an FMA counting two: the 4-state modal
-# filter (advance: 4 multiplies + 16 FMAs; output: 1 multiply + 4 FMAs),
-# the weighted square w*y*y added to a sum, and the polyphase FIR
-# (F phases of K taps)
-FILTER_OPS = 45
+# float32 operations per sample that the functions need, an FMA counting
+# two: the 4-state modal filter, A two 2x2 blocks (advance: 4 multiplies +
+# 8 FMAs; output: 1 multiply + 4 FMAs), the weighted square w*y*y added
+# to a sum, and the polyphase FIR over the phases other than phase 0 (a
+# unit impulse, whose outputs are the samples) and their nonzero taps
+FILTER_OPS = 29
 ENERGY_OPS = 3
 
 
 def fir_ops(factor: int) -> int:
-    return {1: 0, 2: 2 * 2 * 25, 4: 2 * 4 * 13}[factor]
+    return {1: 0, 2: 2 * 1 * 24, 4: 2 * 3 * 12}[factor]
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -719,10 +721,12 @@ def main() -> int:
     nc_bench = n_bench // 128
 
     # 2. K1 against its plain version
-    for factor in (4, 2):
-        print(f"k1 attributes (factor {factor}, T 8192): "
-              f"{json.dumps(K1.kernel_attributes(factor, 8192))}")
-    for rate, b, ragged in [(48000, 3, True), (44100, 3, True), (96000, 2, False)]:
+    for factor, T in ((4, 8192), (2, 8192), (1, 16384)):
+        print(f"k1 attributes (factor {factor}, T {T}): "
+              f"{json.dumps(K1.kernel_attributes(factor, T))}")
+    # 192 kHz: steps and tiles of 16,384 samples, 512 threads a CTA
+    for rate, b, ragged in [(48000, 3, True), (44100, 3, True), (96000, 2, False),
+                            (192000, 2, True)]:
         x4 = noise(gen, (b, 2, 512, 128), dev)
         n = 512 * 128
         nv = torch.tensor([n, n - 700, n // 2][:b] if ragged else [n] * b, device=dev)

@@ -19,11 +19,13 @@
 //               partial peaks per (row, segment) reduced by
 //   peaks_pass  one warp per row: deterministic max, tp = max(tp, sp).
 //
-// Bound on the H100: operations. At 4x the FIR's 36 FMAs per sample (of
+// Bound on the H100: operations. The function needs 104 float32
+// operations per sample at 4x, an FMA counting two: the FIR's 36 FMAs (of
 // its 52 taps, phase 0 is an impulse and the last tap of the others is
-// zero: k1_span) and the filter's 21 (4 for the matrix-form zero state,
-// 17 for the refilter) come to about 70 instructions per sample against
-// one 4-byte read. The design spends nothing else per sample: the tile is read from
+// zero: k1_span), the filter's 5 multiplies and 12 FMAs, and the energy.
+// With the 4 FMAs of the matrix-form zero state and the peaks the kernel
+// issues about 70 instructions per sample against one 4-byte read. The
+// design spends nothing else per sample: the tile is read from
 // shared memory in 16-byte chunks without bank conflicts, constants are
 // kernel parameters (FMA operands from the constant bank, no registers),
 // spans wholly valid and free of a boundary take a path without per-sample

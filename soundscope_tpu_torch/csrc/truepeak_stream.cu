@@ -14,8 +14,10 @@
 // are not ported. Factor 1 (>= 192 kHz) launches nothing (the wrapper takes
 // a masked max, as the reference does).
 //
-// Bound on the H100: the FIR's 52 FMAs per sample at 4x (49 at 2x), over
-// one read of the input.
+// Bound on the H100: bytes, one read of the input. The function needs 36
+// FMAs per sample at 4x (24 at 2x): phase 0 is a unit impulse, whose
+// outputs the sample peak covers, and the other phases' last tap is zero.
+// This kernel runs all 52 (50 at 2x).
 
 #include "iir_common.cuh"
 

@@ -32,15 +32,17 @@ side: ops/iir_tile.py) in one launch that reads the input once:
   and the halo; the step sums are added in a fixed order in float64, the
   partial peaks per (row, segment) reduced by a deterministic max pass.
 
-What bounds it on the H100: operations, about 70 instructions per sample
-at 4x against one 4-byte read: the FIR's 36 FMAs (phase 0 of the
-interpolator is an impulse, whose outputs the sample peak covers, and the
-other phases' last tap is zero), the filter's 21, the energy and the
-peaks. The design keeps everything else off the per-sample path:
+What bounds it on the H100: operations. The function needs 104 float32
+operations per sample at 4x against one 4-byte read: the FIR's 36 FMAs
+(phase 0 of the interpolator is an impulse, whose outputs the sample peak
+covers, and the other phases' last tap is zero), the filter's 5
+multiplies and 12 FMAs, and the energy. The kernel issues about 70
+instructions per sample: those, the 4 FMAs of the matrix-form zero state
+and the peaks. The design keeps everything else off the per-sample path:
 conflict-free 16-byte shared-memory reads, constants as kernel
 parameters, a mask-free path for spans wholly valid and uncut, and one
 4x4 product per segment on the chain. On an H100 SXM at the bench shape,
-(32, 2, 22496, 128), it takes about 0.85 ms, twice its bound; the
+(32, 2, 22496, 128), it takes about 0.85 ms, 2.9x its bound; the
 previous design, one thread per (row, step) sample by sample with two
 reads of the input, took about 1.9 ms.
 

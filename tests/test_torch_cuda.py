@@ -49,8 +49,10 @@ def _noise(shape, seed):
     return torch.from_numpy(x * 0.1)
 
 
+# 192 kHz takes steps and tiles of 16,384 samples: k1_tile's 512-thread CTAs
 @pytest.mark.parametrize("rate,b,ragged", [(48000, 3, True), (44100, 3, True),
-                                           (96000, 2, False), (192000, 1, False)])
+                                           (96000, 2, False), (192000, 1, False),
+                                           (192000, 2, True)])
 def test_k1_kernel_matches_plain(cuda, rate, b, ragged):
     n = 512 * 128
     h = (rate + 5) // 10
@@ -117,6 +119,7 @@ def test_k1_k5_two_launches_bit_identical(cuda):
 
 def test_k1_k5_attributes(cuda):
     for attrs, threads in ((K1.kernel_attributes(4, 8192), 256),
+                           (K1.kernel_attributes(1, 16384), 512),
                            (IIR.chain_attributes(), IIR.CHAIN_TILE // 32)):
         assert attrs["threads"] == threads and attrs["blocks_per_sm"] >= 1
         assert attrs["dynamic_smem"] == 2 * 16 * 8 * (threads + 1)

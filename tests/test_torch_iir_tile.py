@@ -159,14 +159,17 @@ def _noise(shape, seed):
 
 
 # rate, b, n, n_valid: 48 kHz ragged, 44.1 kHz ragged (boundaries inside a
-# thread's 32 samples), 96 kHz (factor 2), n_valid inside a segment, and
-# 81,920 Hz, where h = T = 8192 puts a 100 ms boundary on every segment edge
+# thread's 32 samples), 96 kHz (factor 2), n_valid inside a segment,
+# 81,920 Hz, where h = T = 8192 puts a 100 ms boundary on every segment
+# edge, and 192 kHz ragged (factor 1, steps and tiles of 16,384 samples:
+# 512 threads, 16 warps in series)
 K1_CASES = [
     (48000, 3, 65536, (65536, 65536 - 700, 32768)),
     (44100, 3, 65536, (65536, 65536 - 700, 32768)),
     (96000, 2, 65536, (65536, 65536)),
     (48000, 2, 65536, (8192 * 3 + 1000, 8192 * 5 + 17)),
     (81920, 2, 65536, (65536, 8192 * 6)),
+    (192000, 2, 65536, (65536 - 700, 16384 * 2 + 999)),
 ]
 
 
@@ -295,5 +298,6 @@ def test_sync_buffer_layout():
     assert buf.dtype == torch.int32 and buf.numel() == 4 + 4 * 15
     assert bool((buf == -1).all())
     assert K1.tile_length(128) == 8192 and K1.tile_length(16384) == 16384
+    assert K1.step_length(65536, 19200) == 16384        # the 192 kHz case above
     with pytest.raises(ValueError):
         K1.tile_length(32768)
