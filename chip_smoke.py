@@ -2,6 +2,7 @@
 """Drive the PyTorch port's main path once on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --nonfinite K3     (one kernel on non-finite input)
 
 Phases, in order (any failure exits non-zero before the result line):
 
@@ -34,9 +35,15 @@ Phases, in order (any failure exits non-zero before the result line):
 7. K3, K4, K5 (ops/iir.py) and K6 (ops/truepeak_stream.py) against their
    plain versions on the card: the CPU tests' cases, then each at its
    configuration's shape (K5 and K6 on a 64-row slice of the library scan
-   at full length). z per group rtol 1e-3 / atol 1e-6 * max|z|, sub-block
-   sums rtol 3e-4 / atol 2e-5, true peak rtol 2e-6 / atol 1e-7, sample
-   peak exact. K5's resources, and two launches on the slice bit-identical.
+   at full length), and K3 and K4 on a few long rows (1, 2, 2^22), ragged,
+   at 48 and 44.1 kHz. z per group rtol 1e-3 / atol 1e-6 * max|z|,
+   sub-block sums rtol 3e-4 / atol 2e-5, true peak rtol 2e-6 / atol 1e-7,
+   sample peak exact. K3's, K4's and K5's resources; two launches
+   bit-identical (K5 on the slice, K3 and K4 at their shapes). Then K1,
+   K3, K4, K5 and K6 on rows holding NaN, +Inf, -Inf and the bit pattern
+   0xFFFFFFFF, each launch in a child process that must end within 300 s:
+   non-finite exactly where the plain version is, finite values within
+   the pins, sample peaks equal.
 8. The rows-layout engine path in three configurations at full size, each
    with the launch counts set to 0 just before and read just after:
    the 1,000-track library scan (rows (2000, 720000) through
@@ -46,7 +53,9 @@ Phases, in order (any failure exits non-zero before the result line):
    small slice against the plain path on the CPU.
 9. Timings with CUDA events: K3-K6 against their plain versions, K4 and
    K5 both at the library shape, K5 at K4's 5.1 shape, the library scan
-   in ms per scan and tracks per second, the single-file path in ms.
+   in ms per scan and tracks per second, the single-file and 5.1 paths in
+   ms, and for those two paths the device time, the kernel's share of it
+   and the device's idle share (torch.profiler).
 10. K7 (ops/iir.block_iir_stream) against its plain version on the card:
    the CPU tests' cases, then the 60 Hz tick (2, 800), the 1 s slab
    (2, 44100) and the 5.1 slab (6, 192000), each from a random carried
@@ -262,6 +271,154 @@ def k1_compare(K1, filt_fn, x4, nv, rate):
     print(f"phase k1: rate {rate} shape {tuple(x4.shape)} sub-block max abs err "
           f"{err:.3e} true-peak max abs err {max_err(got[1], want[1]):.3e} ok")
     return err
+
+
+NONFINITE_KERNELS = ("K1", "K3", "K4", "K5", "K6")
+
+
+def nonfinite_input():
+    """(x (3, 2, n) float32, n_valid (3,), first (3,)), host arrays: seeded
+    noise with NaN, +Inf, -Inf and the bit pattern 0xFFFFFFFF in track 0's
+    left channel, 0xFFFFFFFF early in track 1's left channel, +Inf past
+    track 1's n_valid (masked: its outputs stay finite) and -Inf at a
+    segment start in track 2's right channel. n is 16.5 of K3's segments.
+    first[i] is track i's first non-finite valid sample (n if none)."""
+    n = 16 * 8192 + 4096
+    x = (np.random.default_rng(SEED + 5).standard_normal((3, 2, n)) * 0.1).astype(np.float32)
+    bits = x.view(np.int32)
+    x[0, 0, 40000], x[0, 0, 50000], x[0, 0, 60000] = np.nan, np.inf, -np.inf
+    bits[0, 0, 70000] = -1
+    bits[1, 0, 9000] = -1
+    nv = np.array([n, n - 5000, n], np.int64)
+    x[1, 1, n - 100] = np.inf
+    x[2, 1, 3 * 8192] = -np.inf
+    bad = [(~np.isfinite(x[i, :, : nv[i]])).any(0) for i in range(3)]
+    first = np.array([(np.flatnonzero(m).tolist() + [n])[0] for m in bad], np.int64)
+    return x, nv, first
+
+
+def nonfinite_close(what, got, ref, rtol, atol) -> int:
+    """got non-finite exactly where ref is, and within rtol / atol where
+    ref is finite; returns the count of non-finite values."""
+    import torch
+
+    got, ref = got.double().cpu(), ref.double().cpu()
+    require(got.shape == ref.shape, f"{what}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
+    fin = torch.isfinite(ref)
+    diff = torch.isfinite(got) != fin
+    if bool(diff.any()):
+        raise SmokeFailure(f"{what}: {int(diff.sum())} values finite in one version and "
+                           f"not in the other (first at {diff.nonzero()[0].tolist()})")
+    bad = ((got - ref).abs() > atol + rtol * ref.abs()) & fin
+    require(not bool(bad.any()), f"{what}: {int(bad.sum())} finite values outside rtol "
+            f"{rtol} atol {atol}")
+    return int((~fin).sum())
+
+
+def nonfinite_child(kernel: str) -> int:
+    """One launch of `kernel` (K1, K3, K4, K5 or K6) on nonfinite_input(),
+    against its plain version on the same input. Output items that end
+    before their track's first non-finite sample are held to the plain
+    version on the input with the non-finite samples zeroed: the plain
+    versions' blocked filter multiplies the whole 128-sample block by its
+    Toeplitz matrix, so 0 x NaN spreads a NaN back to the block's start,
+    while the filter's output before the sample does not depend on it.
+    Run as a child process (python3 chip_smoke.py --nonfinite K3) so that
+    a launch that hangs is killed and fails the check."""
+    import torch
+
+    from soundscope_tpu_torch.ops import iir as IIR
+    from soundscope_tpu_torch.ops import iir_chunked as K1
+    from soundscope_tpu_torch.ops import truepeak_stream as K6
+    from soundscope_tpu_torch.ops.biquad import make_block_filter
+    from soundscope_tpu_torch.ops.kweight import kweight_cascade_ss
+
+    dev = torch.device("cuda")
+    x, nv, first = nonfinite_input()
+    n = x.shape[-1]
+    xg, nvg = torch.from_numpy(x).to(dev), torch.from_numpy(nv).to(dev)
+    xc = torch.from_numpy(np.where(np.isfinite(x), x, 0.0).astype(np.float32)).to(dev)
+    filt = make_block_filter(kweight_cascade_ss(48000), 128, dev)
+    w = (1.0, 1.0)
+    peaks = None
+    if kernel == "K6":
+        got = K6.true_peak_stream(xg, nvg, 48000)
+        torch.cuda.synchronize()
+        peaks = got, K6.true_peak_stream_plain(xg, nvg, 48000)
+        want = None
+    elif kernel == "K1":
+        h = 4800
+        L = K1.step_length(n, h)
+
+        def run(fn, inp):
+            out = fn(filt, inp.reshape(3, 2, -1, 128), nvg, w, 48000, h)
+            return (K1.subblock_sums_from_steps(out[0], h, L, n).reshape(3, 2, -1).sum(1),
+                    *out[1:])
+
+        got = run(K1.kweight_energy_tp_chunked, xg)
+        torch.cuda.synchronize()
+        want = run(K1.kweight_energy_tp_chunked_plain, xg)
+        clean = run(K1.kweight_energy_tp_chunked_plain, xc)
+        span, rtol, atol = h, 3e-4, 2e-5
+        peaks = got[1:], want[1:]
+    else:
+        g = 32
+        if kernel == "K3":
+            got = IIR.kweight_energy_tp_prefix(filt, xg, nvg, w, 48000, g)
+            torch.cuda.synchronize()
+            want = IIR.kweight_energy_tp_prefix_plain(filt, xg, nvg, w, 48000, g)
+            clean = IIR.kweight_energy_tp_prefix_plain(filt, xc, nvg, w, 48000, g)
+            peaks = got[1:], want[1:]
+        else:
+            fn = IIR.kweight_energy_prefix if kernel == "K4" else IIR.kweight_energy_chain
+            got = (fn(filt, xg, nvg, w, g),)
+            torch.cuda.synchronize()
+            want = (IIR.kweight_energy_prefix_plain(filt, xg, nvg, w, g),)
+            clean = (IIR.kweight_energy_prefix_plain(filt, xc, nvg, w, g),)
+        span, rtol = g, 1e-3
+        atol = 1e-6 * float(clean[0].abs().max())
+    msgs = []
+    if want is not None:
+        ends = (torch.arange(want[0].shape[-1]) + 1) * span
+        before = ends[None] <= torch.from_numpy(first)[:, None]
+        ref = torch.where(before, clean[0].cpu(), want[0].cpu())
+        nz = nonfinite_close(f"non-finite {kernel} energy", got[0], ref, rtol, atol)
+        require(nz > 0, f"non-finite {kernel}: the plain version's energy is finite throughout")
+        msgs.append(f"{nz} of {ref.numel()} energy values non-finite as the plain version's")
+    if peaks is not None:
+        (tp, sp), (tpw, spw) = peaks
+        ntp = nonfinite_close(f"non-finite {kernel} true peak", tp, tpw, 2e-6, 1e-7)
+        require(ntp > 0, f"non-finite {kernel}: the plain version's true peak is finite")
+        sp, spw = sp.cpu(), spw.cpu()
+        nan = torch.isnan(spw)
+        require(torch.equal(torch.isnan(sp), nan) and torch.equal(sp[~nan], spw[~nan]),
+                f"non-finite {kernel} sample peak: {sp.tolist()} against {spw.tolist()}")
+        msgs.append(f"true peak non-finite in {ntp} of {tp.numel()} rows, sample peak equal")
+    print(f"phase nonfinite: {kernel} returned; {', '.join(msgs)} ok")
+    return 0
+
+
+def nonfinite_phase(on, limit_s: float = 300.0) -> None:
+    """K1, K3, K4 and K5 on non-finite input, each launch in a child
+    process (all started together) that must end within limit_s."""
+    procs = {k: subprocess.Popen([sys.executable, os.path.abspath(__file__), "--nonfinite", k],
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for k in NONFINITE_KERNELS}
+    deadline = time.time() + limit_s
+    try:
+        for k, p in procs.items():
+            try:
+                out, err = p.communicate(timeout=max(1.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"non-finite {k}: no result within {limit_s:.0f} s "
+                                   "(a launch that does not return)")
+            require(p.returncode == 0, f"non-finite {k}: exit {p.returncode}\n{err[-4000:]}")
+            print(f"{out.strip()} {on}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
 
 
 def k7_phase(dev, gen, on) -> tuple[float, float]:
@@ -681,6 +838,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:2] == ["--nonfinite"]:
+        return nonfinite_child(sys.argv[2])
     from soundscope_tpu_torch.apps import cli
     from soundscope_tpu_torch.core.config import MeterConfig
     from soundscope_tpu_torch.models.engine import (
@@ -931,13 +1090,31 @@ def main() -> int:
     lib_errs = rows_compare(IIR, K6, filt_fn(48000), x_slice, nv_slice, 48000, 32,
                             ["K4", "K5", "K6"])
     errs["K5"], errs["K6"] = lib_errs["K5"], lib_errs["K6"]
-    print(f"k5 attributes (T {IIR.CHAIN_TILE}): {json.dumps(IIR.chain_attributes())}")
-    w2 = (1.0, 1.0)
-    za = IIR.kweight_energy_chain(filt_fn(48000), x_slice, nv_slice, w2, 32)
-    zb = IIR.kweight_energy_chain(filt_fn(48000), x_slice, nv_slice, w2, 32)
-    require(torch.equal(za, zb), "K5 library slice: two launches differ")
-    print("phase rows: K5 library slice, two launches bit-identical ok")
-    del za, zb
+    # a few long rows, ragged: past the look-back's depth in segments
+    x_long = rows_noise(gen, (1, 2, 1 << 22), dev)
+    nv_long = torch.tensor([(1 << 22) - 48000 * 3 - 333], device=dev)
+    rows_compare(IIR, K6, filt_fn(48000), x_long, nv_long, 48000, 32, ["K3", "K4"])
+    rows_compare(IIR, K6, filt_fn(44100), x_long, nv_long, 44100, 1, ["K3", "K4"])
+    for factor in (4, 2):
+        print(f"k3 attributes (factor {factor}, T {IIR.TP_TILE}): "
+              f"{json.dumps(IIR.rows_attributes(factor, IIR.LOOKBACK))}")
+    print(f"k4 attributes (k5_tile, T {IIR.CHAIN_TILE}, look-back {IIR.LOOKBACK}): "
+          f"{json.dumps(IIR.rows_attributes(0, IIR.LOOKBACK))}")
+    print(f"k5 attributes (k5_tile, T {IIR.CHAIN_TILE}, look-back 0): "
+          f"{json.dumps(IIR.rows_attributes(0, 0))}")
+    w2, w6 = (1.0, 1.0), tuple(float(v) for v in channel_weights(6))
+    for what, fn in [
+            ("K5 library slice", lambda: (IIR.kweight_energy_chain(
+                filt_fn(48000), x_slice, nv_slice, w2, 32),)),
+            ("K3 single-file shape", lambda: IIR.kweight_energy_tp_prefix(
+                filt_fn(48000), x_single, nv_single, w2, 48000, 32)),
+            ("K4 5.1 shape", lambda: (IIR.kweight_energy_prefix(
+                filt_fn(192000), x_51, nv_51, w6, 32),))]:
+        a, b = fn(), fn()
+        require(all(torch.equal(u, v) for u, v in zip(a, b)), f"{what}: two launches differ")
+        print(f"phase rows: {what}, two launches bit-identical ok")
+        del a, b
+    nonfinite_phase(on)
 
     # 8. the rows-layout engine path in three configurations at full size
     def require_finite(what, res, lead, ch):
@@ -1035,13 +1212,15 @@ def main() -> int:
         p = time_ms(plain, plain_iters)
         return (k + time_ms(kernel, iters)) / 2, p
 
+    # K3 and K4 take a fraction of a millisecond: 20 calls a timing, so
+    # that the host's start-up before the first launch weighs little
     k3_ms, k3_plain_ms = pair(
         lambda: IIR.kweight_energy_tp_prefix(f48, x_single, nv_single, w2, 48000, 32),
         lambda: IIR.kweight_energy_tp_prefix_plain(f48, x_single, nv_single, w2, 48000, 32),
-        5, 2)
+        20, 2)
     k4_ms, k4_plain_ms = pair(
         lambda: IIR.kweight_energy_prefix(f192, x_51, nv_51, w6, 32),
-        lambda: IIR.kweight_energy_prefix_plain(f192, x_51, nv_51, w6, 32), 5, 2)
+        lambda: IIR.kweight_energy_prefix_plain(f192, x_51, nv_51, w6, 32), 20, 2)
     k5_at_k4_ms = time_ms(lambda: IIR.kweight_energy_chain(f192, x_51, nv_51, w6, 32), 5)
     k4_slice_ms, k4_slice_plain_ms = pair(
         lambda: IIR.kweight_energy_prefix(f48, x_slice, nv_slice, w2, 32),
@@ -1088,6 +1267,17 @@ def main() -> int:
     print(f"timing single file (240 s, 48 kHz stereo) {single_ms:.4f} ms on the device "
           f"tensor, {single_wall_ms:.4f} ms through analyze_array from host memory {on}")
     print(f"timing 5.1 at 192 kHz (60 s) {surround_ms:.4f} ms on the device tensor {on}")
+    for what, fn, kernel in [
+            ("single file", lambda: analyze_fn(cfg, x_one, NV_SINGLE), "k3_tile"),
+            ("5.1 at 192 kHz", lambda: analyze_fn(cfg_51, x_5, NV_51), "k5_tile")]:
+        prof = device_profile(fn, 3, kernel)
+        if prof:
+            print(f"profile {what}: device {prof['device_ms']:.4f} ms per call, {kernel} "
+                  f"{prof['match_ms']:.4f} ms = {100 * prof['share']:.1f} % of device time; "
+                  f"wall {prof['wall_ms']:.4f} ms, idle share {prof['idle_share']:.4f} "
+                  f"(torch.profiler, 3 calls) {on}")
+        else:
+            print(f"profile {what}: the trace shows no device time (not measured)")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {on}")
 
     # 10.-12. K7 and the streaming path
@@ -1111,10 +1301,11 @@ def main() -> int:
     bounds = {
         "K1": bound(4 * n_bench_all, n_bench_all * (FILTER_OPS + ENERGY_OPS + fir_ops(4))),
         "K2": bound(4 * n_bench_all + 4 * TRACKS * nw * 128 * 2, TRACKS * nw * fft_ops),
-        "K3": bound(4 * (x_single.numel() + NPAD // 32 + 4),
-                    x_single.numel() * (FILTER_OPS + ENERGY_OPS + fir_ops(4))),
-        "K4": bound(4 * (x_51.numel() + NPAD // 32),
-                    5 * NPAD * (FILTER_OPS + ENERGY_OPS)),   # the LFE has weight 0
+        # what this run's data needs: the valid samples (the function reads
+        # nothing past n_valid, nor the LFE of weight 0), every output
+        "K3": bound(4 * (2 * NV_SINGLE + NPAD // 32 + 4),
+                    2 * NV_SINGLE * (FILTER_OPS + ENERGY_OPS + fir_ops(4))),
+        "K4": bound(4 * (5 * NV_51 + NPAD // 32), 5 * NV_51 * (FILTER_OPS + ENERGY_OPS)),
         "K5": bound(4 * (n_slice + n_slice // 2 // 32), n_slice * (FILTER_OPS + ENERGY_OPS)),
         "K6": bound(4 * (n_slice + 2 * x_slice.shape[0]), n_slice * fir_ops(4)),
         "K7": bound(4 * (2 * tick + 2 * 8), tick * FILTER_OPS),

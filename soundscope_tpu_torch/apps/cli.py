@@ -1,14 +1,14 @@
 """Batch CLI host of the PyTorch port.
 
     python -m soundscope_tpu_torch.apps.cli analyze FILE... [--json]
-        [--spectrogram DIR] [--timeline DIR]
-    python -m soundscope_tpu_torch.apps.cli scan DIR [--json]
+        [--spectrogram DIR] [--timeline DIR] [--device cuda|cpu]
+    python -m soundscope_tpu_torch.apps.cli scan DIR [--json] [--device cuda|cpu]
 
 Files are decoded on the host, grouped into (channels, rate, padded
 length) buckets, and each bucket is analyzed as one batch in the frames
-view (b, ch, N/128, 128) on the CUDA device when there is one, else on
-the CPU. On CUDA the bucket runs through K1 and, with --spectrogram above
-40 kHz, K2.
+view (b, ch, N/128, 128) on `--device`: the CUDA device (the default;
+the command fails when there is none) or the CPU. On CUDA the bucket runs
+through K1 and, with --spectrogram above 40 kHz, K2.
 
 Decoding uses the port's own NumPy WAV and AIFF readers (utils/io.py);
 other formats fall to the ffmpeg command line where one is installed.
@@ -38,7 +38,7 @@ def _export_path(dir_: str, title: str, suffix: str, used: dict) -> str:
     return os.path.join(dir_, name + suffix)
 
 
-def _analyze_bucket(key, items, results, spectrogram_dir=None,
+def _analyze_bucket(key, items, results, dev, spectrogram_dir=None,
                     timeline_dir=None, used_names=None) -> None:
     import torch
 
@@ -46,7 +46,6 @@ def _analyze_bucket(key, items, results, spectrogram_dir=None,
     from soundscope_tpu_torch.models.engine import analyze_batch_native
 
     ch, rate, npad = key
-    dev = default_device()
     used = used_names if used_names is not None else {}
     cfg = MeterConfig(channels=ch, rate=rate, max_blocks=0)
     xs = np.zeros((len(items), ch, npad), np.float32)
@@ -100,7 +99,7 @@ def _analyze_bucket(key, items, results, spectrogram_dir=None,
         results.append(row)
 
 
-def _analyze_paths(paths: list[str], spectrogram_dir: str | None = None,
+def _analyze_paths(paths: list[str], dev, spectrogram_dir: str | None = None,
                    timeline_dir: str | None = None) -> list[dict]:
     from soundscope_tpu_torch.models.engine import pad_bucket
 
@@ -109,7 +108,7 @@ def _analyze_paths(paths: list[str], spectrogram_dir: str | None = None,
     used_names: dict = {}
 
     def flush(key):
-        _analyze_bucket(key, buckets.pop(key), results, spectrogram_dir,
+        _analyze_bucket(key, buckets.pop(key), results, dev, spectrogram_dir,
                         timeline_dir, used_names)
 
     for p in paths:
@@ -142,13 +141,18 @@ def _print_table(rows: list[dict]) -> None:
 
 
 def cmd_analyze(args) -> int:
+    try:
+        dev = default_device(args.device)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     spec_dir = getattr(args, "spectrogram", None)
     if spec_dir:
         os.makedirs(spec_dir, exist_ok=True)
     tl_dir = getattr(args, "timeline", None)
     if tl_dir:
         os.makedirs(tl_dir, exist_ok=True)
-    rows = _analyze_paths(args.files, spectrogram_dir=spec_dir,
+    rows = _analyze_paths(args.files, dev, spectrogram_dir=spec_dir,
                           timeline_dir=tl_dir)
     if args.json:
         print(json.dumps(rows, indent=None if args.compact else 2))
@@ -194,6 +198,8 @@ def main(argv=None) -> int:
                    help="also write pooled mid/side spectrograms (.spec.npz)")
     a.add_argument("--timeline", metavar="DIR",
                    help="also write momentary/short-term timelines (.loudness.npz)")
+    a.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="where to compute (default: cuda)")
     a.set_defaults(fn=cmd_analyze)
 
     s = sub.add_parser("scan", help="recursively analyze a directory",
@@ -203,6 +209,8 @@ def main(argv=None) -> int:
     s.add_argument("--compact", action="store_true")
     s.add_argument("--timeline", metavar="DIR",
                    help="also write momentary/short-term timelines (.loudness.npz)")
+    s.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="where to compute (default: cuda)")
     s.set_defaults(fn=cmd_scan)
 
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)

@@ -1,7 +1,8 @@
 """Where the port computes, and how constants get there.
 
-`default_device` picks the card when there is one, unless the caller asks
-for the CPU. `upload` copies a host constant to a device without asking
+`default_device` picks the card: every entry point computes on it unless
+the caller asks for the CPU (``device="cpu"``). Without a working card it
+raises rather than fall back to the CPU unasked. `upload` copies a host constant to a device without asking
 PyTorch to wait for the stream: the streaming meter builds its constants
 at the first push, and a push of a CUDA tensor must not synchronise the
 host (chip_smoke.py runs every push under
@@ -17,10 +18,14 @@ import torch
 
 
 def default_device(device=None) -> torch.device:
-    """`device` as a torch.device; None means CUDA when available, else CPU."""
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    return torch.device(device)
+    """`device` as a torch.device; None means CUDA. Raises RuntimeError
+    when CUDA is asked for (or None given) and no card is available."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "soundscope_tpu_torch computes on a CUDA device and none is "
+            "available; pass device=\"cpu\" (the CLI: --device cpu) to run on the CPU")
+    return dev
 
 
 def upload(a, device) -> torch.Tensor:

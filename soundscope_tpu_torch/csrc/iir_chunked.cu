@@ -10,7 +10,8 @@
 //   k1_tile     a CTA per segment of T samples of a row (T = max(L, 8192),
 //               a multiple of the step L = 128 * 2^k <= h, so at most one
 //               100 ms boundary per step), its entry state chained from the
-//               previous segment's CTA; each thread refilters its 32
+//               previous segment's CTA (look-back depth 0: its 64 rows at
+//               the bench shape keep the card busy); each thread refilters its 32
 //               samples from shared memory, sums z = w_ch * y^2 masked at
 //               n_valid in float32 into (step total, energy before the
 //               step's boundary) and runs the polyphase FIR over the same
@@ -22,7 +23,8 @@
 // Bound on the H100: operations. The function needs 104 float32
 // operations per sample at 4x, an FMA counting two: the FIR's 36 FMAs (of
 // its 52 taps, phase 0 is an impulse and the last tap of the others is
-// zero: k1_span), the filter's 5 multiplies and 12 FMAs, and the energy.
+// zero: TileFir, iir_tile.cuh), the filter's 5 multiplies and 12 FMAs, and
+// the energy.
 // With the 4 FMAs of the matrix-form zero state and the peaks the kernel
 // issues about 70 instructions per sample against one 4-byte read. The
 // design spends nothing else per sample: the tile is read from
@@ -42,35 +44,16 @@
 namespace {
 
 // Refilters the thread's 32 samples (tile row r) from s; sums z into tot
-// and, for samples before `cut`, into left; the FIR (F > 1) over the
-// samples with the halo from row r - 1. MASK: some sample is at or past
-// n_valid, or the step's boundary cuts the span.
-//
-// The FIR runs phases 1 .. F-1 over taps 0 .. KP-2. Phase 0 of the BS.1770
-// interpolator is a unit impulse (its other taps are under 4e-17), so its
-// outputs are input samples, which the sample peak already takes (tp =
-// max(tp, sp), within 1e-16 of the full sum); the last tap of the other
-// phases is zero. The wrapper checks both on the taps it passes.
+// and, for samples before `cut`, into left; the FIR (F > 1, TileFir) over
+// the samples with the halo from row r - 1. MASK: some sample is at or
+// past n_valid, or the step's boundary cuts the span.
 template <int F, int KP, bool MASK>
 __device__ __forceinline__ void k1_span(const TileArgs& a, const float4* tile, int r,
                                         V4 s, int64_t g0, int64_t nv, float w, int cut,
                                         float& tot, float& left, float& tp, float& sp) {
-  constexpr int KH = KP > 1 ? KP - 1 : 1;          // taps read per phase
   const TileConsts& k = a.k;
-  // hist[t] = x at (g - t) once sample g is in; before the first sample it
-  // holds x at (g0 - 1 - t), the last KH - 1 samples of row r - 1
-  float hist[KH];
-  if (F > 1) {
-    constexpr int c0 = (TS - (KH - 1)) / 4;
-#pragma unroll
-    for (int c = c0; c < 8; ++c) {
-      const float4 h4 = tile[tile_slot(r - 1, c)];
-      const float hs[4] = {h4.x, h4.y, h4.z, h4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (TS - 1 - (4 * c + i) < KH - 1) hist[TS - 1 - (4 * c + i)] = hs[i];
-    }
-  }
+  TileFir<F, KP> fir;
+  fir.halo(tile, r);
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     const float4 x4 = tile[tile_slot(r, c)];
@@ -85,23 +68,12 @@ __device__ __forceinline__ void k1_span(const TileArgs& a, const float4* tile, i
       if (MASK) {
         tot += valid ? z : 0.f;
         left += (valid && j < cut) ? z : 0.f;
-        sp = fmaxf(sp, valid ? fabsf(x) : 0.f);
+        sp = fmax_nan(sp, valid ? fabsf(x) : 0.f);
       } else {
         tot += z;
-        sp = fmaxf(sp, fabsf(x));
+        sp = fmax_nan(sp, fabsf(x));
       }
-      if (F > 1) {
-#pragma unroll
-        for (int t = KH - 1; t > 0; --t) hist[t] = hist[t - 1];
-        hist[0] = x;
-#pragma unroll
-        for (int p = 1; p < F; ++p) {
-          float acc = 0.f;
-#pragma unroll
-          for (int t = KH - 1; t >= 0; --t) acc = fmaf(a.taps[p * KP + t], hist[t], acc);
-          tp = fmaxf(tp, valid ? fabsf(acc) : 0.f);
-        }
-      }
+      fir.push(a, x, valid, tp);
     }
   }
   if (!MASK && cut >= TS) left = tot;
@@ -117,7 +89,7 @@ k1_tile(const __grid_constant__ TileArgs a) {
   extern __shared__ float4 tiles[];
   __shared__ double red[TILE_MAX_WARPS][2];
   __shared__ float pk[TILE_MAX_WARPS][2];
-  tile_loop(a, tiles, F > 1, [](int64_t ar) { return ar; },
+  tile_loop<0>(a, tiles, F > 1, [](int64_t ar) { return ar; },
             [&](const TileScan& ts, const float4* tile) {
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, P = blockDim.x;
     const int64_t g0 = ts.start + (int64_t)TS * tid;
@@ -159,15 +131,7 @@ k1_tile(const __grid_constant__ TileArgs a) {
       red[warp][0] = dt;
       red[warp][1] = dl;
     }
-#pragma unroll
-    for (int o = 16; o > 0; o /= 2) {
-      tp = fmaxf(tp, __shfl_xor_sync(0xffffffffu, tp, o));
-      sp = fmaxf(sp, __shfl_xor_sync(0xffffffffu, sp, o));
-    }
-    if (lane == 0) {
-      pk[warp][0] = tp;
-      pk[warp][1] = sp;
-    }
+    warp_peaks(tp, sp, pk);
     __syncthreads();
     const int wps = per_step / 32;                 // warps per step, if > 0
     if (per_step > 32 && tid < P / per_step && step0 + tid < a.nsteps) {
@@ -179,15 +143,8 @@ k1_tile(const __grid_constant__ TileArgs a) {
       out[2 * (step0 + tid)] = (float)st;
       out[2 * (step0 + tid) + 1] = (float)sl;
     }
-    if (tid == 0) {
-      float a0 = 0.f, a1 = 0.f;
-      for (int v = 0; v < P / 32; ++v) {
-        a0 = fmaxf(a0, pk[v][0]);
-        a1 = fmaxf(a1, pk[v][1]);
-      }
-      a.tp_part[ts.row * a.nseg + ts.seg] = a0;
-      a.sp_part[ts.row * a.nseg + ts.seg] = a1;
-    }
+    cta_peaks(pk, a.tp_part + ts.row * a.nseg + ts.seg,
+              a.sp_part + ts.row * a.nseg + ts.seg);
   });
 }
 
@@ -216,7 +173,7 @@ void attrs(int P, int* out) {
 }  // namespace
 
 // consts: TileConsts as floats (host memory); taps F x KP (host); weights
-// ch (host). sync: int32 (4 + 4 * rows * nseg), all bits set; tp_part,
+// ch (host). sync: int32 (4 + 8 * rows * nseg), all bits set; tp_part,
 // sp_part (rows, nseg). Returns the first CUDA error, 0 on success.
 extern "C" int ss_kweight_energy_tp(
     const float* x, const int64_t* n_valid, const float* consts, const float* taps,
@@ -249,6 +206,7 @@ extern "C" int ss_kweight_energy_tp(
   a.tp_part = tp_part;
   a.sp_part = sp_part;
   a.zr = nullptr;
+  a.group = 0;
   const int P = (int)(T / TS);
   const int64_t ntickets = rows * a.nseg;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

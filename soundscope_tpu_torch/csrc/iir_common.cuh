@@ -1,21 +1,21 @@
-// Device code shared by the K-weighting energy and true-peak kernels
-// (K3/K4 iir_rows.cu, K6 truepeak_stream.cu) and the streaming filter (K7
-// block_iir.cu). K1 and K5 run the tile-scan core of iir_tile.cuh and take
-// only peaks_pass (K1) and the launch helpers from here.
+// Device code shared by the true-peak kernel K6 (truepeak_stream.cu), the
+// streaming filter K7 (block_iir.cu) and, for peaks_pass and the launch
+// helpers, the tile-scan kernels K1, K3, K4, K5 (iir_tile.cuh).
 //
-// All of them solve the 4-state K-weighting recurrence s <- A s + B x,
+// K7 solves the 4-state K-weighting recurrence s <- A s + B x,
 // y = C s + D x in the modal realisation (block-diagonal A,
 // ops/biquad.py:modal_form), which stays exact in float32; the direct form
-// would drift. Where time is split into steps of L samples, the passes are
+// would drift. Time is split into steps of L samples:
 //
-//   zero_state_pass  one thread per (row, step): the step's final state
-//                    from a zero state;
+//   a zero-state pass of its own: each step's final state from a zero
+//                    state;
 //   prefix_pass      one thread per row: s_entry[j+1] = A^L s_entry[j] +
 //                    s_final0[j] (A^L built on the host in float64), from
 //                    s_entry[0] = 0 or the caller's carried state s0;
-//   a correction pass of each kernel's own: refilter from s_entry[j];
+//   a correction pass of its own: refilter from s_entry[j].
+//
 //   peaks_pass       one warp per row: deterministic max of per-(row,
-//                    step) partial peaks, tp = max(tp, sp).
+//                    step) partial peaks, tp = max(tp, sp) (K1, K3, K6).
 //
 // Sample offsets are int64 throughout. Everything here has internal
 // linkage: each translation unit that includes it gets its own copy.
@@ -106,6 +106,13 @@ __device__ __forceinline__ void stream_samples(const float* __restrict__ xr,
   }
 }
 
+// max that returns NaN when either operand is NaN (torch.max does)
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // BS.1770 polyphase interpolator: F phases of KP taps over the masked
 // signal. hist[k] = masked x at (g - k) once sample g has been pushed;
 // before the first push it holds x[start - 1 - k], the KP - 1 samples of
@@ -144,28 +151,11 @@ struct Fir {
         float acc = 0.f;
 #pragma unroll
         for (int k = KP - 1; k >= 0; --k) acc = fmaf(hk[p][k], hist[k], acc);
-        tp = fmaxf(tp, fabsf(acc));
+        tp = fmax_nan(tp, fabsf(acc));
       }
     }
   }
 };
-
-__global__ void __launch_bounds__(THREADS)
-zero_state_pass(const float* __restrict__ x, const float* __restrict__ coef,
-                int64_t rows, int64_t n, int64_t nsteps, int64_t L,
-                float* __restrict__ s_final) {
-  const int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (t >= rows * nsteps) return;
-  const int64_t row = t / nsteps;
-  const int64_t j = t - row * nsteps;
-  Filter f;
-  load_filter(coef, f);
-  float s[NS] = {0.f, 0.f, 0.f, 0.f};
-  stream_samples(x + row * n, j * L, L,
-                 [&](int64_t, float xv) { advance(f, s, xv); });
-#pragma unroll
-  for (int i = 0; i < NS; ++i) s_final[t * NS + i] = s[i];
-}
 
 __global__ void __launch_bounds__(THREADS)
 prefix_pass(const float* __restrict__ coef, int64_t rows, int64_t nsteps,
@@ -210,7 +200,7 @@ prefix_pass(const float* __restrict__ coef, int64_t rows, int64_t nsteps,
 }
 
 // one warp per row; max is exact, so the order of the lanes' partial
-// maxima does not change the result
+// maxima does not change the result (a NaN partial gives a NaN peak)
 __global__ void __launch_bounds__(THREADS)
 peaks_pass(int64_t rows, int64_t nsteps, const float* __restrict__ tp_part,
            const float* __restrict__ sp_part, float* __restrict__ tp,
@@ -220,16 +210,16 @@ peaks_pass(int64_t rows, int64_t nsteps, const float* __restrict__ tp_part,
   if (row >= rows) return;
   float a = 0.f, b = 0.f;
   for (int64_t j = lane; j < nsteps; j += 32) {
-    a = fmaxf(a, tp_part[row * nsteps + j]);
-    b = fmaxf(b, sp_part[row * nsteps + j]);
+    a = fmax_nan(a, tp_part[row * nsteps + j]);
+    b = fmax_nan(b, sp_part[row * nsteps + j]);
   }
 #pragma unroll
   for (int o = 16; o > 0; o /= 2) {
-    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
-    b = fmaxf(b, __shfl_xor_sync(0xffffffffu, b, o));
+    a = fmax_nan(a, __shfl_xor_sync(0xffffffffu, a, o));
+    b = fmax_nan(b, __shfl_xor_sync(0xffffffffu, b, o));
   }
   if (lane == 0) {
-    tp[row] = fmaxf(a, b);
+    tp[row] = fmax_nan(a, b);
     sp[row] = b;
   }
 }

@@ -1,7 +1,7 @@
 // K3, K4, K5: K-weighted, masked, channel-weighted energy over the rows
 // layout (b*ch, N) (channel-minor; a 3D (b, ch, N) tensor is the same
-// memory), pre-summed over groups of g samples into z (b, N/g); K3 adds the
-// BS.1770 true peak and sample peak per row.
+// memory), pre-summed over groups of g | 32 samples into z (b, N/g); K3
+// adds the BS.1770 true peak and sample peak per row.
 //
 // Replaces, in soundscope_tpu/ops/pallas_iir.py,
 //   K3 kweight_energy_tp_pallas_prefix  (pallas_call :577)
@@ -12,29 +12,40 @@
 // matrices of A_B powers. Neither schedule carries over: CUDA blocks run in
 // no order, and the matrices exist for the TPU's matrix unit.
 //
-// K3/K4 ("split-time", ss_kweight_energy_rows): K1's passes over steps of
-// L samples (iir_common.cuh), with a correction pass of its own: one thread
-// per (track, step) walks the track's channels in order, refilters each
-// from its s_entry, and adds its group sums of w_c * y^2 (masked at
-// n_valid, float64 within a group) into z, which the wrapper zeroes. The
-// thread owns its z span, so the channel sum needs no atomics and has one
-// order: z = (0 + group_c0) + group_c1 + ... . Channels of weight 0 add
-// nothing (K4 does not even filter them); K3 still takes their peaks.
+// All three run the tile-scan core of iir_tile.cuh, one launch that reads
+// the input once, each thread refiltering 32 samples from shared memory:
 //
-// K5 ("chain", ss_kweight_energy_chain): the tile-scan core of
-// iir_tile.cuh over the rows of nonzero weight (k5_tile), one launch that
-// reads the input once: a CTA per segment of T = 4096 samples of a row,
-// chained to the previous segment's CTA by its inclusive end state, each
-// thread refiltering 32 samples from shared memory and writing its group
-// sums (g | 32) to zr (b*ch, N/g); a second pass adds the channels in
-// order into z. The previous K5 carried the state sample by sample on one
-// thread per row: 2,000 threads, 16 of the 132 SMs, for the library scan.
+//   k3_tile  K3 over every row (rows of weight 0 too, for their peaks):
+//            segments of T = 8192, K1's masked polyphase FIR with its halo
+//            row (TileFir) beside the group sums; partial peaks per (row,
+//            segment), reduced by peaks_pass (iir_common.cuh).
+//   k5_tile  K4 and K5 over the rows of nonzero weight (rows of weight 0
+//            are neither read nor filtered): segments of T = 4096, group
+//            sums only.
 //
-// Bound on the H100: device-memory reads of the input (K3/K4 read it
-// twice, K5 once). K3/K4 stream each thread's own contiguous span
-// (stream_samples keeps the next 128 bytes in flight); K5 copies its tiles
-// with cp.async, and its per-sample work (4 FMAs of zero state, 17 of
-// refilter, 3 of energy) stays under the bytes' time.
+// Both write float32 group sums in sample order to zr (b*ch, N/g);
+// channel_sum adds the channels in order into z. No float atomics: every
+// launch gives the same bits.
+//
+// The chain. K3 and K4 serve few long rows (one file: 2 or 6 rows of
+// 2^24 samples), K5 many short ones (the library scan: 2,000 rows of
+// 720,000). On the plain chain (look-back depth 0) a row is N / T hops of
+// about 0.45 us each on the H100, 1.8 ms a row at 4,096 segments: the
+// chain, not the card, set K5's time on K4's input. K3 and K4 look back 32
+// segments (ops/iir.py:LOOKBACK): N / (33 T) hops, 62 for K3's single
+// file, 124 for K4's 5.1 file; 64 was no faster on the H100. They also
+// take each next ticket late and skip the segments past n_valid
+// (tile_loop). K5 keeps
+// depth 0: its 2,000 rows fill the card along chains of 176 hops. The
+// alternative, a launch that writes every segment's aggregate, a tree
+// scan over each row's aggregates and a second launch that refilters, has
+// no spin-wait but reads the input twice and launches three kernels; K4
+// is bound by the bytes it reads, so the look-back, one read and no scan
+// launch, was taken.
+//
+// Bounds on the H100: K3 operations (the FIR's 36 FMAs at 4x), as K1; K4
+// and K5 the bytes of the input, as K5 was (about 30 instructions per
+// sample under the reads' time).
 
 #include <cstring>
 
@@ -43,67 +54,7 @@
 
 namespace {
 
-// F = 0: energy only (K4); F = 2, 4: energy + peaks with F phases (K3)
-template <int F, int KP>
-__global__ void __launch_bounds__(THREADS)
-rows_correct(const float* __restrict__ x, const int64_t* __restrict__ n_valid,
-             const float* __restrict__ coef, const float* __restrict__ weights,
-             const float* __restrict__ taps, int64_t b, int ch, int64_t n,
-             int64_t nsteps, int64_t L, int64_t g,
-             const float* __restrict__ s_entry, float* __restrict__ z,
-             float* __restrict__ tp_part, float* __restrict__ sp_part) {
-  const int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (t >= b * nsteps) return;
-  const int64_t track = t / nsteps;
-  const int64_t j = t - track * nsteps;
-  const int64_t nv = __ldg(n_valid + track);
-  const int64_t start = j * L;
-  Filter f;
-  load_filter(coef, f);
-  Fir<(F > 1 ? F : 1), (F > 1 ? KP : 1)> fir;
-  if (F > 1) fir.load(taps);
-  float* zt = z + track * (n / g) + start / g;
-
-  for (int c = 0; c < ch; ++c) {
-    const int64_t row = track * ch + c;
-    const float w = __ldg(weights + c);
-    const bool energy = w != 0.f;
-    if (F == 0 && !energy) continue;
-    const float* xr = x + row * n;
-    float s[NS];
-#pragma unroll
-    for (int i = 0; i < NS; ++i) s[i] = s_entry[(row * nsteps + j) * NS + i];
-    if (F > 1) fir.reset(xr, start, nv);
-    double acc = 0.0;
-    int64_t k = 0, gi = 0;
-    float sp = 0.f;
-    stream_samples(xr, start, L, [&](int64_t gs, float xv) {
-      const bool valid = gs < nv;
-      if (energy) {
-        const float y = output(f, s, xv);
-        advance(f, s, xv);
-        acc += valid ? (double)(w * (y * y)) : 0.0;
-        if (++k == g) {
-          zt[gi] += (float)acc;
-          ++gi;
-          acc = 0.0;
-          k = 0;
-        }
-      }
-      if (F > 0) {
-        const float xm = valid ? xv : 0.f;
-        sp = fmaxf(sp, fabsf(xm));
-        if (F > 1) fir.push(xm, valid);
-      }
-    });
-    if (F > 0) {
-      tp_part[row * nsteps + j] = F > 1 ? fir.tp : 0.f;
-      sp_part[row * nsteps + j] = sp;
-    }
-  }
-}
-
-// K5: the tile-scan core over the active rows. Each thread writes its
+// K4 and K5: the tile-scan core over the active rows. Each thread writes its
 // group sums of g | 32 samples (float32, in sample order) into its own row
 // of the tile, whose samples it has read; the CTA then copies the tile's
 // group sums to zr coalesced.
@@ -131,8 +82,9 @@ __device__ __forceinline__ void k5_span(const TileConsts& k, float4* tile, int r
   }
 }
 
-// groups of 2^GLOG samples, GLOG <= 5
-template <int GLOG>
+// groups of 2^GLOG samples, GLOG <= 5; look-back depth D: TILE_LOOKBACK
+// (K4) or 0 (K5)
+template <int GLOG, int D>
 __global__ void __launch_bounds__(256)
 k5_tile(const __grid_constant__ TileArgs a) {
   extern __shared__ float4 tiles[];
@@ -140,8 +92,16 @@ k5_tile(const __grid_constant__ TileArgs a) {
     const int64_t tr = ar / a.na;
     return tr * a.ch + a.chans[ar - tr * a.na];
   };
-  tile_loop(a, tiles, false, row_of, [&](const TileScan& ts, float4* tile) {
+  tile_loop<D>(a, tiles, false, row_of, [&](const TileScan& ts, float4* tile) {
     const int tid = threadIdx.x, P = blockDim.x;
+    constexpr int PLOG = 5 - GLOG;                 // group sums per thread: 2^PLOG
+    const int64_t ng = a.n >> GLOG;
+    const int64_t q0 = ts.start >> GLOG;
+    float* out = a.zr + ts.row * ng;
+    if (ts.skip) {                                 // wholly past n_valid
+      for (int q = tid; q < P << PLOG && q0 + q < ng; q += P) out[q0 + q] = 0.f;
+      return;
+    }
     const int64_t g0 = ts.start + (int64_t)TS * tid;
     const int64_t nv = __ldg(a.n_valid + ts.row / a.ch);
     const float w = a.weights[ts.row % a.ch];
@@ -151,10 +111,6 @@ k5_tile(const __grid_constant__ TileArgs a) {
     }
     __syncthreads();
     const float* z = reinterpret_cast<const float*>(tile);
-    constexpr int PLOG = 5 - GLOG;                 // group sums per thread: 2^PLOG
-    const int64_t ng = a.n >> GLOG;
-    const int64_t q0 = ts.start >> GLOG;
-    float* out = a.zr + ts.row * ng;
     for (int q = tid; q < P << PLOG; q += P) {
       if (q0 + q >= ng) break;
       const int r = (q >> PLOG) + 1, p = q & ((1 << PLOG) - 1);
@@ -163,14 +119,26 @@ k5_tile(const __grid_constant__ TileArgs a) {
   });
 }
 
-template <int GLOG>
+template <int GLOG, int D>
 cudaError_t launch_k5(const TileArgs& a, int P, cudaStream_t st) {
   const size_t smem = tile_smem_bytes(P);
   int grid = 0;
-  cudaError_t e = persistent_grid(k5_tile<GLOG>, P, smem, a.R * a.nseg, &grid);
+  cudaError_t e = persistent_grid(k5_tile<GLOG, D>, P, smem, a.R * a.nseg, &grid);
   if (e != cudaSuccess) return e;
-  k5_tile<GLOG><<<grid, P, smem, st>>>(a);
+  k5_tile<GLOG, D><<<grid, P, smem, st>>>(a);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_k5(const TileArgs& a, int P, int64_t group, cudaStream_t st) {
+  switch (group) {
+    case 1: return launch_k5<0, D>(a, P, st);
+    case 2: return launch_k5<1, D>(a, P, st);
+    case 4: return launch_k5<2, D>(a, P, st);
+    case 8: return launch_k5<3, D>(a, P, st);
+    case 16: return launch_k5<4, D>(a, P, st);
+    default: return launch_k5<5, D>(a, P, st);
+  }
 }
 
 struct ChanList {
@@ -179,7 +147,7 @@ struct ChanList {
 };
 
 // z[track, i] = (0 + zr[c0]) + zr[c1] + ... over the channels of nonzero
-// weight, in channel order (the order rows_correct adds them in)
+// weight, in channel order
 __global__ void __launch_bounds__(THREADS)
 channel_sum(const float* __restrict__ zr, const ChanList cl, int64_t b, int ch,
             int64_t ng, float* __restrict__ z) {
@@ -192,69 +160,143 @@ channel_sum(const float* __restrict__ zr, const ChanList cl, int64_t b, int ch,
   z[t] = acc;
 }
 
-}  // namespace
-
-// K3 (factor 2 or 4: energy + peaks) or K4 (factor 0: energy only).
-// z (b, n/group) must be zero on entry. Returns the first CUDA error of the
-// launches, 0 on success.
-extern "C" int ss_kweight_energy_rows(
-    const float* x, const int64_t* n_valid, const float* coef,
-    const float* weights, const float* taps, int factor, int64_t b, int ch,
-    int64_t n, int64_t L, int64_t group, float* s_final, float* s_entry,
-    float* z, float* tp_part, float* sp_part, float* tp, float* sp,
-    void* stream) {
-  if (factor != 0 && factor != 2 && factor != 4) return (int)cudaErrorInvalidValue;
-  if (L <= 0 || L % 128 != 0 || n % L != 0 || ch <= 0 || group <= 0 ||
-      L % group != 0)
-    return (int)cudaErrorInvalidValue;
-  if (b == 0) return 0;
-  const int64_t rows = b * ch;
-  const int64_t nsteps = n / L;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-
-  zero_state_pass<<<blocks_for(rows * nsteps), THREADS, 0, st>>>(
-      x, coef, rows, n, nsteps, L, s_final);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-
-  prefix_pass<<<blocks_for(rows), THREADS, 0, st>>>(coef, rows, nsteps, s_final,
-                                                    s_entry, nullptr);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-
-  const unsigned gr = blocks_for(b * nsteps);
-  if (factor == 4) {
-    rows_correct<4, 13><<<gr, THREADS, 0, st>>>(x, n_valid, coef, weights, taps,
-        b, ch, n, nsteps, L, group, s_entry, z, tp_part, sp_part);
-  } else if (factor == 2) {
-    rows_correct<2, 25><<<gr, THREADS, 0, st>>>(x, n_valid, coef, weights, taps,
-        b, ch, n, nsteps, L, group, s_entry, z, tp_part, sp_part);
-  } else {
-    rows_correct<0, 1><<<gr, THREADS, 0, st>>>(x, n_valid, coef, weights, taps,
-        b, ch, n, nsteps, L, group, s_entry, z, tp_part, sp_part);
+// K3's span: refilters the thread's 32 samples (tile row r) from s and
+// writes z = w * y^2, masked, over them (chunk c of row r after it is
+// read); the FIR and the sample peak over the same samples. MASK: some
+// sample is at or past n_valid.
+template <int F, int KP, bool MASK>
+__device__ __forceinline__ void k3_span(const TileArgs& a, float4* tile, int r, V4 s,
+                                        int64_t g0, int64_t nv, float w, TileFir<F, KP>& fir,
+                                        float& tp, float& sp) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float4 x4 = tile[tile_slot(r, c)];
+    const float xs[4] = {x4.x, x4.y, x4.z, x4.w};
+    float zs[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x = xs[i];
+      const float y = step_filter(a.k, s, x);
+      const bool valid = !MASK || g0 + 4 * c + i < nv;
+      zs[i] = valid ? w * (y * y) : 0.f;
+      sp = fmax_nan(sp, valid ? fabsf(x) : 0.f);
+      fir.push(a, x, valid, tp);
+    }
+    tile[tile_slot(r, c)] = make_float4(zs[0], zs[1], zs[2], zs[3]);
   }
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  if (factor == 0) return 0;
-
-  peaks_pass<<<blocks_for(rows * 32), THREADS, 0, st>>>(rows, nsteps, tp_part,
-                                                        sp_part, tp, sp);
-  return (int)cudaGetLastError();
 }
 
-// K5. consts: TileConsts as floats, weights ch (host memory). sync: int32
-// (4 + 4 * b * na * nseg), all bits set, with na the channels of nonzero
-// weight; zr (b*ch, n/group) is scratch (rows of weight 0 are not written);
-// z (b, n/group) is written whole. group must divide 32.
-extern "C" int ss_kweight_energy_chain(
-    const float* x, const int64_t* n_valid, const float* consts, const float* weights,
-    int64_t b, int ch, int64_t n, int64_t group, int64_t T, int* sync, float* zr,
-    float* z, void* stream) {
+// The group sums of a tile of z (K3): output q of the segment adds the g
+// samples of its group in order in float32, as k5_span does, and is
+// written coalesced (zeros for a skipped segment).
+__device__ __forceinline__ void k3_groups(const TileArgs& a, const float4* tile,
+                                          const TileScan& ts) {
+  const int g = (int)a.group, per = TS / g, P = blockDim.x;
+  const int64_t ng = a.n / g;
+  const int64_t q0 = ts.start / g;
+  float* out = a.zr + ts.row * ng;
+  const float* zf = reinterpret_cast<const float*>(tile);
+  for (int q = threadIdx.x; q < P * per; q += P) {
+    if (q0 + q >= ng) break;
+    const int r = q / per + 1, j0 = (q % per) * g;
+    float acc = 0.f;
+    if (!ts.skip && g >= 4) {
+      for (int c = j0 / 4; c < (j0 + g) / 4; ++c) {
+        const float4 v = tile[tile_slot(r, c)];
+        acc += v.x;
+        acc += v.y;
+        acc += v.z;
+        acc += v.w;
+      }
+    } else if (!ts.skip) {
+      for (int j = j0; j < j0 + g; ++j) acc += zf[4 * tile_slot(r, j >> 2) + (j & 3)];
+    }
+    out[q0 + q] = acc;
+  }
+}
+
+// CTAs of 256 threads (T = 8192), 2 resident per SM as K1's
+constexpr int K3_THREADS = 256;
+constexpr int K3_MINB = 2;
+
+template <int F, int KP>
+__global__ void __launch_bounds__(K3_THREADS, K3_MINB)
+k3_tile(const __grid_constant__ TileArgs a) {
+  extern __shared__ float4 tiles[];
+  __shared__ float pk[TILE_MAX_WARPS][2];
+  tile_loop<TILE_LOOKBACK>(a, tiles, true, [](int64_t ar) { return ar; },
+            [&](const TileScan& ts, float4* tile) {
+    const int r = threadIdx.x + 1;
+    const int64_t g0 = ts.start + (int64_t)TS * threadIdx.x;
+    const int64_t nv = __ldg(a.n_valid + ts.row / a.ch);
+    const float w = a.weights[ts.row % a.ch];
+    if (ts.skip) {                                 // wholly past n_valid
+      if (threadIdx.x == 0) {
+        a.tp_part[ts.row * a.nseg + ts.seg] = 0.f;
+        a.sp_part[ts.row * a.nseg + ts.seg] = 0.f;
+      }
+      if (w != 0.f) k3_groups(a, tile, ts);
+      return;
+    }
+    TileFir<F, KP> fir;
+    fir.halo(tile, r);
+    __syncthreads();                     // every halo is read before z overwrites it
+    float tp = 0.f, sp = 0.f;
+    if (g0 < a.n) {
+      if (g0 + TS <= nv) {
+        k3_span<F, KP, false>(a, tile, r, ts.entry, g0, nv, w, fir, tp, sp);
+      } else if (g0 < nv) {
+        k3_span<F, KP, true>(a, tile, r, ts.entry, g0, nv, w, fir, tp, sp);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) tile[tile_slot(r, c)] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    warp_peaks(tp, sp, pk);
+    __syncthreads();
+    cta_peaks(pk, a.tp_part + ts.row * a.nseg + ts.seg, a.sp_part + ts.row * a.nseg + ts.seg);
+    if (w != 0.f) k3_groups(a, tile, ts);
+  });
+}
+
+template <int F, int KP>
+cudaError_t launch_k3(const TileArgs& a, int P, cudaStream_t st) {
+  const size_t smem = tile_smem_bytes(P);
+  int grid = 0;
+  cudaError_t e = persistent_grid(k3_tile<F, KP>, P, smem, a.R * a.nseg, &grid);
+  if (e != cudaSuccess) return e;
+  k3_tile<F, KP><<<grid, P, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// K3 (factor 2 or 4: energy + peaks, over every row) or K4 / K5 (factor 0:
+// energy, over the rows of nonzero weight), on segments of T samples with
+// a look-back of depth `lookback`: TILE_LOOKBACK (K3, K4) or 0 (K5).
+// consts: TileConsts as floats, taps F x
+// KP, weights ch (all host memory). sync: int32 (4 + 8 * R * nseg), all
+// bits set, with R = b * ch for K3 and b * (channels of nonzero weight)
+// for K4 / K5; zr (b*ch, n/group) is scratch (K3 writes the rows of
+// nonzero weight, K4 / K5 the same); z (b, n/group) is written whole;
+// tp_part, sp_part (b*ch, nseg), tp, sp (b*ch) for K3. group must divide
+// 32. Returns the first CUDA error of the launches, 0 on success.
+extern "C" int ss_kweight_energy_rows(
+    const float* x, const int64_t* n_valid, const float* consts, const float* taps,
+    const float* weights, int factor, int64_t b, int ch, int64_t n, int64_t group,
+    int64_t T, int lookback, int* sync, float* zr, float* z, float* tp_part,
+    float* sp_part, float* tp, float* sp, void* stream) {
+  if (factor != 0 && factor != 2 && factor != 4) return (int)cudaErrorInvalidValue;
   if (n <= 0 || n % 128 != 0 || ch <= 0 || ch > TILE_MAX_CH || group <= 0 ||
-      TS % group != 0 || T % 1024 != 0 || T > 32 * 256)
+      TS % group != 0 || T % 1024 != 0 || T > TS * 256 ||
+      (lookback != TILE_LOOKBACK && (factor > 0 || lookback != 0)))
     return (int)cudaErrorInvalidValue;
   if (b == 0) return 0;
   TileArgs a;
   memcpy(&a.k, consts, sizeof(TileConsts));
   memset(a.taps, 0, sizeof(a.taps));
+  const int KP = factor == 4 ? 13 : (factor == 2 ? 25 : 0);
+  if (factor > 0) memcpy(a.taps, taps, sizeof(float) * factor * KP);
   ChanList cl;
   cl.n = 0;
   for (int c = 0; c < ch; ++c) {
@@ -262,40 +304,48 @@ extern "C" int ss_kweight_energy_chain(
     if (weights[c] != 0.f) a.chans[cl.n++] = c;
   }
   for (int c = 0; c < cl.n; ++c) cl.c[c] = a.chans[c];
-  const int na = cl.n;
+  a.x = x;
+  a.n_valid = n_valid;
+  a.sync = sync;
+  a.n = n;
+  a.nseg = (n + T - 1) / T;
+  a.ch = ch;
+  a.na = cl.n;
+  a.L = a.h = a.nsteps = 0;
+  a.step_sums = nullptr;
+  a.tp_part = tp_part;
+  a.sp_part = sp_part;
+  a.zr = zr;
+  a.group = group;
+  const int P = (int)(T / TS);
   const int64_t ng = n / group;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (na > 0) {
-    a.x = x;
-    a.n_valid = n_valid;
-    a.sync = sync;
-    a.n = n;
-    a.nseg = (n + T - 1) / T;
-    a.R = b * na;
-    a.ch = ch;
-    a.na = na;
-    a.L = a.h = a.nsteps = 0;
-    a.step_sums = a.tp_part = a.sp_part = nullptr;
-    a.zr = zr;
-    const int P = (int)(T / TS);
-    switch (group) {
-      case 1: e = launch_k5<0>(a, P, st); break;
-      case 2: e = launch_k5<1>(a, P, st); break;
-      case 4: e = launch_k5<2>(a, P, st); break;
-      case 8: e = launch_k5<3>(a, P, st); break;
-      case 16: e = launch_k5<4>(a, P, st); break;
-      default: e = launch_k5<5>(a, P, st); break;
-    }
-    if (e != cudaSuccess) return (int)e;
+  cudaError_t e = cudaSuccess;
+  if (factor > 0) {
+    a.R = b * ch;
+    e = factor == 4 ? launch_k3<4, 13>(a, P, st) : launch_k3<2, 25>(a, P, st);
+  } else if (cl.n > 0) {
+    a.R = b * cl.n;
+    e = lookback > 0 ? launch_k5<TILE_LOOKBACK>(a, P, group, st)
+                     : launch_k5<0>(a, P, group, st);
   }
+  if (e != cudaSuccess) return (int)e;
   channel_sum<<<blocks_for(b * ng), THREADS, 0, st>>>(zr, cl, b, ch, ng, z);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if (factor == 0) return 0;
+  peaks_pass<<<blocks_for(b * ch * 32), THREADS, 0, st>>>(b * ch, a.nseg, tp_part, sp_part,
+                                                          tp, sp);
   return (int)cudaGetLastError();
 }
 
 // out[6]: registers, static smem, dynamic smem, local (spill) bytes per
-// thread, threads, CTAs per SM of k5_tile at this tile and groups of 32.
-extern "C" int ss_kweight_energy_chain_attrs(int64_t T, int* out) {
-  kernel_attrs(k5_tile<5>, (int)(T / TS), out);
+// thread, threads, CTAs per SM of k3_tile (factor 2, 4) or k5_tile at
+// groups of 32 (factor 0: K4 with a look-back, K5 without) at this tile.
+extern "C" int ss_kweight_energy_rows_attrs(int factor, int64_t T, int lookback, int* out) {
+  const int P = (int)(T / TS);
+  if (factor == 4) kernel_attrs(k3_tile<4, 13>, P, out);
+  else if (factor == 2) kernel_attrs(k3_tile<2, 25>, P, out);
+  else if (lookback > 0) kernel_attrs(k5_tile<5, TILE_LOOKBACK>, P, out);
+  else kernel_attrs(k5_tile<5, 0>, P, out);
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,12 @@
-// The tile-scan core of the K-weighting energy kernels K1 (iir_chunked.cu)
-// and K5 (iir_rows.cu, chain route).
+// The tile-scan core of the K-weighting energy kernels: K1
+// (iir_chunked.cu) and K3, K4, K5 (iir_rows.cu). Four bodies on one core:
+// K1 sums steps and runs the FIR, K3 writes group sums and runs the FIR,
+// K4 and K5 write group sums (one kernel, k5_tile, at two look-back
+// depths).
 //
-// Both run the 4-state recurrence s <- A s + B x, y = C s + D x in the
+// Each runs the 4-state recurrence s <- A s + B x, y = C s + D x in the
 // modal realisation (ops/biquad.py:modal_form; A is two 2x2 blocks, the
-// wrapper checks it) over rows of N samples and sum z = w * y^2 masked at
+// wrapper checks it) over rows of N samples and sums z = w * y^2 masked at
 // n_valid into fixed spans. One launch, one read of the input:
 //
 //   * A CTA of P = 32 W threads works on segments of T = 32 P samples of
@@ -24,33 +27,57 @@
 //   * A Kogge-Stone scan over the warp's lanes (A^(32 * 2^r), five rounds)
 //     and a serial pass over the CTA's warps (A^1024) give, before the
 //     carry is known, every thread's zero-state entry offset and the
-//     segment's aggregate G.
-//   * Thread 0 waits for the predecessor's inclusive end state (ticket
-//     t - R), publishes s_out = A^T s_in + G for its successor, and only
-//     then does the CTA refilter. The hop on the chain is one matrix-vector
-//     product; nothing waits for a partial aggregate, so every run gives
-//     the same bits.
+//     segment's aggregate G (its zero-state end state).
+//   * The entry state of the segment comes from a fixed look-back of depth
+//     D, a constant of the kernel's instance: TILE_LOOKBACK = 32 or 0.
+//     The CTA publishes G(t) before it waits for
+//     anything, then takes, with every term of a segment before 0 zero,
+//
+//       s_in(t) = A^(T D) incl(t - (D+1) R) + sum_(j=1..D) A^(T (j-1)) G(t - j R)
+//       incl(t) = A^T s_in(t) + G(t),
+//
+//     and publishes incl(t) for the CTA that looks back to it. A row's
+//     chain of waits on inclusive states then hops D + 1 segments at a
+//     time: N / (T (D+1)) hops instead of N / T. Lane j - 1 of warp 0
+//     reads G(t - j R) (D <= 32) and forms its term in float32 from the
+//     float64 powers A^(T 2^b) picked by the bits of j - 1; a fixed tree
+//     over the lanes sums the terms, so every launch gives the same
+//     bits (a look-back that stops wherever a prefix happens to be ready
+//     would not). The state carried D segments back enters through
+//     A^(T D), about e^(-20 D) at T = 4096 in the slow mode: the sum is
+//     well conditioned. D = 0 is the plain chain, s_in(t) = incl(t - R)
+//     (K1 and K5, whose many rows keep the card busy along short chains).
+//     With a look-back the CTA takes its next ticket once its records are
+//     out (tile_loop).
 //   * Each thread's entry state is A^(32 lane) (A^(1024 w) s_in + E_w) +
 //     F_(lane-1), the lane power applied as a product of the scan's
 //     matrices picked by the bits of the lane. It then refilters its 32
-//     samples from shared memory and forms w * y^2 (K1 also runs the
+//     samples from shared memory and forms w * y^2 (K1 and K3 also run the
 //     polyphase FIR over the same samples and the halo).
 //
-// The carry records are float4s (rows x segments), set to the bit pattern
-// 0xFFFFFFFF by the wrapper; a record is complete when none of its four
-// words holds that pattern, which no float arithmetic produces (the
-// card's NaN is 0x7FFFFFFF). Word 0 of the same int32 buffer is the ticket
-// counter, so tickets count from -1 + 1 = 0.
+// The carry records are two float4s per ticket (G, then incl), set to the
+// bit pattern 0xFFFFFFFF by the wrapper; a record is complete when none of
+// its four words holds that pattern. st_carry never writes it: a word that
+// would hold it (a NaN whose payload the input forged) is written as the
+// card's canonical NaN 0x7FFFFFFF instead, so no input can hang a wait.
+// Word 0 of the same int32 buffer is the ticket counter, so tickets count
+// from -1 + 1 = 0; records start at word 4.
 //
 // Constants: TileConsts, built on the host in float64 and rounded to
 // float32 (ops/iir_tile.py), is passed by value: the kernel parameters
 // live in the constant bank, whence FMAs read them without registers, and
 // the wrappers upload nothing.
+//
+// Peaks (K1, K3) are maxima that propagate NaN (max.NaN), as the plain
+// versions' torch max does: a NaN in the valid samples of a row is a NaN
+// peak, not a peak of the other samples.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "iir_common.cuh"
 
 namespace {
 
@@ -59,6 +86,9 @@ constexpr int TILE_MAX_WARPS = 16;     // P <= 512, T <= 16384
 constexpr int KS_ROUNDS = 5;           // log2 of the warp
 constexpr int TILE_MAX_CH = 16;
 constexpr int TILE_MAX_TAPS = 52;      // 4 x 13 or 2 x 25
+constexpr int TILE_LOOKBACK = 32;      // D with a look-back: the lanes of warp 0
+constexpr int LB_BITS = 6;             // look-back powers A^(T 2^b): D < 2^LB_BITS
+constexpr int REC = 8;                 // record words per ticket: G, incl
 
 // float layout of the host array (ops/iir_tile.py:tile_constants)
 struct TileConsts {
@@ -70,29 +100,39 @@ struct TileConsts {
   float KS[KS_ROUNDS][16];             // A^(S * 2^r)
   float AW[TILE_MAX_WARPS][16];        // A^(32 S w)
   float AT[16];                        // A^T
+  float LB[LB_BITS][8];                // A^(T 2^b) as its two 2x2 blocks
 };
 
 struct TileArgs {
   TileConsts k;
-  float taps[TILE_MAX_TAPS];           // K1: F phases x KP taps
+  float taps[TILE_MAX_TAPS];           // K1, K3: F phases x KP taps
   float weights[TILE_MAX_CH];          // per channel
-  int chans[TILE_MAX_CH];              // K5: the active (nonzero-weight) channels
+  int chans[TILE_MAX_CH];              // K4, K5: the active (nonzero-weight) channels
   const float* x;
   const int64_t* n_valid;              // per track
-  int* sync;                           // [0] ticket counter, then carry words
+  int* sync;                           // [0] ticket counter, records from [4]
   int64_t n;                           // samples per row
   int64_t nseg;                        // segments per row
   int64_t R;                           // active rows
   int ch;                              // channels per track
-  int na;                              // active channels per track (K5)
+  int na;                              // active channels per track (K4, K5)
   // K1
   int64_t L, h, nsteps;
   float* step_sums;
+  // K1, K3: partial peaks per (row, segment)
   float* tp_part;
   float* sp_part;
-  // K5
+  // K3, K4, K5: group sums per row
   float* zr;
+  int64_t group;                       // K3: samples per group, g | 32
 };
+
+// TileArgs travels by value as the kernel's parameter. CUDA 12.1 and later
+// (12.8 and 12.9 included) allow 32,764 bytes of parameters on Volta and
+// later; TileArgs stays within the classic 4,096 that every CUDA release
+// accepts.
+static_assert(sizeof(TileArgs) <= 32764, "TileArgs outgrows the kernel parameter space");
+static_assert(sizeof(TileArgs) <= 4096, "TileArgs outgrows the classic 4 KB of parameters");
 
 struct V4 {
   float v[4];
@@ -110,6 +150,16 @@ __device__ __forceinline__ V4 matvec(const float* __restrict__ M, const V4& s) {
   return r;
 }
 
+// M s with M the two 2x2 diagonal blocks m[0..3], m[4..7] (row-major)
+__device__ __forceinline__ V4 matvec2(const float* __restrict__ m, const V4& s) {
+  V4 r;
+  r.v[0] = fmaf(m[1], s.v[1], m[0] * s.v[0]);
+  r.v[1] = fmaf(m[3], s.v[1], m[2] * s.v[0]);
+  r.v[2] = fmaf(m[5], s.v[3], m[4] * s.v[2]);
+  r.v[3] = fmaf(m[7], s.v[3], m[6] * s.v[2]);
+  return r;
+}
+
 __device__ __forceinline__ V4 add(const V4& a, const V4& b) {
   V4 r;
 #pragma unroll
@@ -121,6 +171,13 @@ __device__ __forceinline__ V4 shfl_up(const V4& a, int d) {
   V4 r;
 #pragma unroll
   for (int i = 0; i < 4; ++i) r.v[i] = __shfl_up_sync(0xffffffffu, a.v[i], d);
+  return r;
+}
+
+__device__ __forceinline__ V4 shfl_down(const V4& a, int d) {
+  V4 r;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) r.v[i] = __shfl_down_sync(0xffffffffu, a.v[i], d);
   return r;
 }
 
@@ -158,9 +215,15 @@ __device__ __forceinline__ V4 ld_carry(const int* p) {
   return r;
 }
 
+// the word, or the canonical NaN where the word is the record sentinel
+__device__ __forceinline__ float no_sentinel(float v) {
+  return __float_as_int(v) == -1 ? __int_as_float(0x7fffffff) : v;
+}
+
 __device__ __forceinline__ void st_carry(int* p, const V4& s) {
   asm volatile("st.volatile.global.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(p),
-               "f"(s.v[0]), "f"(s.v[1]), "f"(s.v[2]), "f"(s.v[3])
+               "f"(no_sentinel(s.v[0])), "f"(no_sentinel(s.v[1])),
+               "f"(no_sentinel(s.v[2])), "f"(no_sentinel(s.v[3]))
                : "memory");
 }
 
@@ -171,26 +234,57 @@ __device__ __forceinline__ bool carry_ready(const V4& s) {
   return ok;
 }
 
+__device__ __forceinline__ V4 wait_carry(const int* p, V4 s) {
+  while (!carry_ready(s)) {
+    __nanosleep(20);
+    s = ld_carry(p);
+  }
+  return s;
+}
+
 // What the scan gives each thread of the CTA.
 struct TileScan {
   int64_t ticket, row, seg, start;
   V4 entry;                            // the state before the thread's first sample
+  bool skip;                           // the segment starts at or past n_valid
 };
 
-// The scan of the module comment, up to each thread's entry state, over a
-// tile already in shared memory. Every thread of the CTA calls it.
+// A^(T m) v for 0 <= m < 2^LB_BITS: the look-back powers picked by the
+// bits of m, lowest first
+__device__ __forceinline__ V4 lb_power(const TileConsts& k, int m, V4 v) {
+#pragma unroll
+  for (int b = 0; b < LB_BITS; ++b)
+    if ((m >> b) & 1) v = matvec2(k.LB[b], v);
+  return v;
+}
+
+// The scan and look-back of the module comment, up to each thread's entry
+// state, over a tile already in shared memory. Every thread of the CTA
+// calls it. D: the look-back depth, 0 or TILE_LOOKBACK. next_sh (D > 0):
+// where thread 0 puts the CTA's next ticket, taken once this one's records
+// are out.
+template <int D>
 __device__ __forceinline__ V4 tile_scan(const TileArgs& a, const float4* tile,
-                                        int64_t ticket, int64_t seg) {
+                                        int64_t ticket, int64_t seg, int64_t* next_sh) {
+  static_assert(D >= 0 && D <= TILE_LOOKBACK, "the look-back runs on the lanes of warp 0");
   __shared__ V4 warp_sh[TILE_MAX_WARPS];
   __shared__ V4 s_in_sh;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int P = blockDim.x;
   const TileConsts& k = a.k;
+  int* const rec = a.sync + 4;
 
-  // the predecessor's record, read early: it is usually complete already
-  const int* src = a.sync + 4 + 4 * (ticket - a.R);
-  V4 s_in = {{0.f, 0.f, 0.f, 0.f}};
-  if (tid == 0 && seg > 0) s_in = ld_carry(src);
+  // the records that enter, read early: they are usually complete. Lane
+  // j - 1 of warp 0 takes G(t - j R), lane 0 also incl(t - (D+1) R).
+  const bool has_incl = seg > D;
+  const int* src = rec + REC * (ticket - (int64_t)(D + 1) * a.R) + 4;
+  V4 incl = {{0.f, 0.f, 0.f, 0.f}};
+  if (tid == 0 && has_incl) incl = ld_carry(src);
+  const int j = lane + 1;
+  const bool has_g = warp == 0 && j <= D && seg >= j;
+  const int* gsrc = rec + REC * (ticket - (int64_t)j * a.R);
+  V4 g = {{0.f, 0.f, 0.f, 0.f}};
+  if (has_g) g = ld_carry(gsrc);
 
   // zero-state end state of the thread's sub-span, in matrix form
   const int r = tid + 1;
@@ -202,7 +296,7 @@ __device__ __forceinline__ V4 tile_scan(const TileArgs& a, const float4* tile,
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) f.v[j] = fmaf(k.W[4 * c + i][j], xs[i], f.v[j]);
+      for (int m = 0; m < 4; ++m) f.v[m] = fmaf(k.W[4 * c + i][m], xs[i], f.v[m]);
   }
   // inclusive Kogge-Stone over the warp: F_l = sum_(m <= l) A^(S (l - m)) f_m
 #pragma unroll
@@ -215,23 +309,34 @@ __device__ __forceinline__ V4 tile_scan(const TileArgs& a, const float4* tile,
   if (lane == 31) warp_sh[warp] = f;
   __syncthreads();
 
-  if (tid == 0) {
+  if (warp == 0) {
     // exclusive prefix over the warps in order, then the segment aggregate
+    // G, published before any wait
     V4 e = {{0.f, 0.f, 0.f, 0.f}};
-    const int nw = P / 32;
-    for (int w = 0; w < nw; ++w) {
-      const V4 t = warp_sh[w];
-      warp_sh[w] = e;
-      e = add(matvec(k.AW[1], e), t);
-    }
-    if (seg > 0) {
-      while (!carry_ready(s_in)) {
-        __nanosleep(20);
-        s_in = ld_carry(src);
+    if (lane == 0) {
+      for (int w = 0; w < P / 32; ++w) {
+        const V4 t = warp_sh[w];
+        warp_sh[w] = e;
+        e = add(matvec(k.AW[1], e), t);
       }
+      if (D > 0 && seg + 1 < a.nseg) st_carry(rec + REC * ticket, e);
     }
-    if (seg + 1 < a.nseg) st_carry(a.sync + 4 + 4 * ticket, add(matvec(k.AT, s_in), e));
-    s_in_sh = s_in;
+    // lane j - 1 forms A^(T (j-1)) G(t - j R); a fixed tree sums the lanes
+    V4 s_in = {{0.f, 0.f, 0.f, 0.f}};
+    if (D > 0) {
+      if (has_g) s_in = lb_power(k, j - 1, wait_carry(gsrc, g));
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) s_in = add(s_in, shfl_down(s_in, o));
+    }
+    if (lane == 0) {
+      if (has_incl) {
+        incl = wait_carry(src, incl);
+        s_in = D > 0 ? add(lb_power(k, D, incl), s_in) : incl;
+      }
+      if (seg + D + 1 < a.nseg) st_carry(rec + REC * ticket + 4, add(matvec(k.AT, s_in), e));
+      if (D > 0) *next_sh = (int64_t)atomicAdd(a.sync, 1) + 1;
+      s_in_sh = s_in;
+    }
   }
   __syncthreads();
 
@@ -242,25 +347,41 @@ __device__ __forceinline__ V4 tile_scan(const TileArgs& a, const float4* tile,
   return add(v, fex);
 }
 
-// A persistent CTA's walk over the segments. Each CTA takes tickets one
-// ahead: while it scans and refilters segment t from one tile buffer, the
-// copy of its next ticket's segment into the other is in flight. (The
-// smallest unfinished ticket is always one a CTA is working on, and its
-// predecessor is finished, so the waits cannot deadlock.) body(ts, tile)
-// runs once per segment with the tile in shared memory; tiles holds two
-// buffers of 8 * (P + 1) float4. row_of maps an active-row index to a row.
-template <class RowOf, class Body>
+// A persistent CTA's walk over the segments. Each CTA works on one ticket
+// while the copy of its next ticket's segment into the other tile buffer is
+// in flight. On the plain chain (D = 0, many rows) it takes the next ticket
+// as it starts on the current one, so the copy overlaps the whole segment's
+// work. With a look-back (D > 0, a few long rows) it takes the next ticket
+// once the current one's records are out, and the copy overlaps the
+// refilter: a ticket then waits in a CTA's hands for a refilter, not a
+// whole segment, and the segments a CTA looks back to have been started in
+// ticket order, close together. With a look-back, a segment that starts at
+// or past its track's n_valid (a padded bucket's tail) is neither copied
+// nor scanned: nothing valid follows it in its row, so no record of it is
+// read, and its body writes zeros (ts.skip). (In both, the smallest
+// ticket whose records are not out is one a CTA is working on, and every
+// record it reads belongs to a smaller ticket, so the waits cannot
+// deadlock.) body(ts, tile) runs once per segment with the tile in shared
+// memory; tiles holds two buffers of 8 * (P + 1) float4. row_of maps an
+// active-row index to a row.
+template <int D, class RowOf, class Body>
 __device__ __forceinline__ void tile_loop(const TileArgs& a, float4* tiles, bool halo,
                                           RowOf row_of, Body body) {
   __shared__ int64_t ticket_sh[2];
   const int P = blockDim.x;
   const int64_t ntickets = a.R * a.nseg;
   const int64_t T = (int64_t)TS * P;
+  constexpr bool late = D > 0;
   auto buf = [&](int b) { return tiles + b * 8 * (P + 1); };
+  auto skipped = [&](int64_t t) {
+    const int64_t seg = t / a.R;
+    return late && seg * T >= __ldg(a.n_valid + row_of(t - seg * a.R) / a.ch);
+  };
   auto start_copy = [&](int64_t t, float4* dst) {
     const int64_t seg = t / a.R;
     const int64_t row = row_of(t - seg * a.R);
-    issue_tile(dst, a.x + row * a.n, seg * T, a.n, P, halo ? 0 : 1);
+    if (!skipped(t)) issue_tile(dst, a.x + row * a.n, seg * T, a.n, P, halo ? 0 : 1);
+    else asm volatile("cp.async.commit_group;\n" ::);
   };
   if (threadIdx.x == 0) ticket_sh[0] = (int64_t)atomicAdd(a.sync, 1) + 1;
   __syncthreads();
@@ -268,12 +389,17 @@ __device__ __forceinline__ void tile_loop(const TileArgs& a, float4* tiles, bool
   if (t >= ntickets) return;
   start_copy(t, buf(0));
   for (int b = 0;; b ^= 1) {
-    if (threadIdx.x == 0) ticket_sh[b ^ 1] = (int64_t)atomicAdd(a.sync, 1) + 1;
-    __syncthreads();
-    const int64_t next = ticket_sh[b ^ 1];
-    if (next < ntickets) {
-      start_copy(next, buf(b ^ 1));
-      asm volatile("cp.async.wait_group 1;\n" ::);
+    int64_t next = ntickets;
+    if (!late) {
+      if (threadIdx.x == 0) ticket_sh[b ^ 1] = (int64_t)atomicAdd(a.sync, 1) + 1;
+      __syncthreads();
+      next = ticket_sh[b ^ 1];
+      if (next < ntickets) {
+        start_copy(next, buf(b ^ 1));
+        asm volatile("cp.async.wait_group 1;\n" ::);
+      } else {
+        asm volatile("cp.async.wait_group 0;\n" ::);
+      }
     } else {
       asm volatile("cp.async.wait_group 0;\n" ::);
     }
@@ -283,7 +409,17 @@ __device__ __forceinline__ void tile_loop(const TileArgs& a, float4* tiles, bool
     ts.seg = t / a.R;
     ts.row = row_of(t - ts.seg * a.R);
     ts.start = ts.seg * T;
-    ts.entry = tile_scan(a, buf(b), t, ts.seg);
+    ts.skip = skipped(t);
+    if (!ts.skip) {
+      ts.entry = tile_scan<D>(a, buf(b), t, ts.seg, &ticket_sh[b ^ 1]);
+    } else {
+      if (threadIdx.x == 0) ticket_sh[b ^ 1] = (int64_t)atomicAdd(a.sync, 1) + 1;
+      __syncthreads();
+    }
+    if (late) {
+      next = ticket_sh[b ^ 1];
+      if (next < ntickets) start_copy(next, buf(b ^ 1));
+    }
     body(ts, buf(b));
     __syncthreads();                     // the buffer is refilled next turn
     if (next >= ntickets) return;
@@ -345,6 +481,76 @@ __device__ __forceinline__ float step_filter(const TileConsts& k, V4& s, float x
   s.v[2] = t2;
   s.v[3] = t3;
   return y;
+}
+
+// The masked polyphase FIR of K1 and K3 over a thread's 32 samples (tile
+// row r), phases 1 .. F-1 over taps 0 .. KP-2. Phase 0 of the BS.1770
+// interpolator is a unit impulse (its other taps are under 4e-17), so its
+// outputs are input samples, which the sample peak already takes (tp =
+// max(tp, sp), within 1e-16 of the full sum); the last tap of the other
+// phases is zero. The wrappers check both on the taps they pass.
+// hist[t] = x at (g - t) once sample g is in; before the first sample it
+// holds x at (g0 - 1 - t), the last KH - 1 samples of row r - 1. The
+// history holds raw samples: an output at a valid position reads only
+// valid ones, and outputs at positions >= n_valid do not count.
+template <int F, int KP>
+struct TileFir {
+  static constexpr int KH = KP > 1 ? KP - 1 : 1;   // taps read per phase
+  float hist[KH];
+
+  __device__ __forceinline__ void halo(const float4* tile, int r) {
+    if (F == 1) return;
+    constexpr int c0 = (TS - (KH - 1)) / 4;
+#pragma unroll
+    for (int c = c0; c < 8; ++c) {
+      const float4 h4 = tile[tile_slot(r - 1, c)];
+      const float hs[4] = {h4.x, h4.y, h4.z, h4.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (TS - 1 - (4 * c + i) < KH - 1) hist[TS - 1 - (4 * c + i)] = hs[i];
+    }
+  }
+
+  // push sample x; its outputs raise tp where valid (taps: a.taps)
+  __device__ __forceinline__ void push(const TileArgs& a, float x, bool valid, float& tp) {
+    if (F == 1) return;
+#pragma unroll
+    for (int t = KH - 1; t > 0; --t) hist[t] = hist[t - 1];
+    hist[0] = x;
+#pragma unroll
+    for (int p = 1; p < F; ++p) {
+      float acc = 0.f;
+#pragma unroll
+      for (int t = KH - 1; t >= 0; --t) acc = fmaf(a.taps[p * KP + t], hist[t], acc);
+      tp = fmax_nan(tp, valid ? fabsf(acc) : 0.f);
+    }
+  }
+};
+
+// The CTA's partial peaks (K1, K3): each warp's maxima into pk (before a
+// __syncthreads), then thread 0 writes the CTA's (after it).
+__device__ __forceinline__ void warp_peaks(float tp, float sp, float (*pk)[2]) {
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) {
+    tp = fmax_nan(tp, __shfl_xor_sync(0xffffffffu, tp, o));
+    sp = fmax_nan(sp, __shfl_xor_sync(0xffffffffu, sp, o));
+  }
+  if ((threadIdx.x & 31) == 0) {
+    pk[threadIdx.x >> 5][0] = tp;
+    pk[threadIdx.x >> 5][1] = sp;
+  }
+}
+
+__device__ __forceinline__ void cta_peaks(float (*pk)[2], float* tp_out,
+                                          float* sp_out) {
+  if (threadIdx.x != 0) return;
+  float a0 = 0.f, a1 = 0.f;
+  for (int v = 0; v < (int)blockDim.x / 32; ++v) {
+    a0 = fmax_nan(a0, pk[v][0]);
+    a1 = fmax_nan(a1, pk[v][1]);
+  }
+  *tp_out = a0;
+  *sp_out = a1;
 }
 
 }  // namespace

@@ -10,7 +10,8 @@
 // masked at the row's n_valid, and writes a partial true and sample peak;
 // peaks_pass (iir_common.cuh) takes the per-row max, tp = max(tp, sp). No
 // float atomics: the result is the same on every run, and the sample peak
-// is exact. The reference's block and row-tile picks are VMEM policy and
+// is exact. Maxima propagate NaN, as the plain version's torch max does.
+// The reference's block and row-tile picks are VMEM policy and
 // are not ported. Factor 1 (>= 192 kHz) launches nothing (the wrapper takes
 // a masked max, as the reference does).
 //
@@ -43,7 +44,7 @@ tp_spans(const float* __restrict__ x, const int64_t* __restrict__ n_valid,
   stream_samples(xr, start, L, [&](int64_t g, float xv) {
     const bool valid = g < nv;
     const float xm = valid ? xv : 0.f;
-    sp = fmaxf(sp, fabsf(xm));
+    sp = fmax_nan(sp, fabsf(xm));
     fir.push(xm, valid);
   });
   tp_part[t] = fir.tp;

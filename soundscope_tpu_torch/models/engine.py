@@ -31,7 +31,7 @@ import torch
 
 from soundscope_tpu_torch.core import constants as C
 from soundscope_tpu_torch.core.config import MeterConfig
-from soundscope_tpu_torch.core.device import default_device
+from soundscope_tpu_torch.core.device import default_device, upload
 from soundscope_tpu_torch.ops import iir as IIR
 from soundscope_tpu_torch.ops import loudness as L
 from soundscope_tpu_torch.ops.biquad import block_iir, make_block_filter
@@ -59,11 +59,11 @@ def rows_plan(n: int, b: int, ch: int, rate: int, block: int) -> tuple[str, bool
 
     The threshold is the port's own, not a VMEM model. It sends the
     library scan (2,000 rows) down the chain and a one-track 5.1 file
-    (6 rows) down the prefix, as the reference's dispatch does. K5 runs
-    the tile-scan core (segments of 4,096 samples chained row by row, on
-    every SM) and reads the input once; K4 runs b * N / span_length(N)
-    threads and reads it twice. On an H100 at the library shape K5 takes
-    less time than K4 (PERF.md), so the chain is the faster route there.
+    (6 rows) down the prefix, as the reference's dispatch does. K4 and K5
+    run one kernel of the tile-scan core (segments of 4,096 samples, one
+    read of the input): K4 with a look-back of 32 segments, which keeps a
+    few long rows from waiting on a long chain, K5 with the plain chain,
+    which its many rows fill the card along.
 
     K6 runs for the peaks when they are not fused, the rate needs
     oversampling and N % 128 == 0 (at factor 1 the peak is a masked max on
@@ -179,7 +179,7 @@ def analyze_batch_native(cfg: MeterConfig, samples: torch.Tensor,
         s3 = samples.reshape(b, ch, n)
         y, _ = block_iir(filt, s3, s3.new_zeros((b, ch, 4)))
         y = torch.where(torch.arange(n, device=dev) < n_valid[:, None, None], y, 0.0)
-        sums = L.subblock_sums(L.weighted_square(y, torch.from_numpy(weights).to(dev)), h)
+        sums = L.subblock_sums(L.weighted_square(y, upload(weights, dev)), h)
     else:
         # the kernels pre-sum groups of 32 samples where 32 divides the
         # 100 ms sub-block (48 kHz and its family); 44.1 kHz keeps z per sample

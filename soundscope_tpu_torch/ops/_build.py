@@ -45,15 +45,13 @@ _ENTRIES = (
     ("ss_stft_pooled", [_P, _I64, _I64, _I64] + [_P] * 6),
     # out[6]: K2's registers, smem, spills, threads, CTAs per SM
     ("ss_stft_pooled_attrs", [_P]),
-    # x, n_valid, coef, weights, taps, factor, b, ch, n, L, group,
-    # s_final, s_entry, z, tp_part, sp_part, tp, sp, stream
+    # x, n_valid, consts, taps, weights (host), factor, b, ch, n, group, T,
+    # lookback, sync, zr, z, tp_part, sp_part, tp, sp, stream: K3, K4, K5
     ("ss_kweight_energy_rows",
-     [_P] * 5 + [_INT, _I64, _INT, _I64, _I64, _I64] + [_P] * 8),
-    # x, n_valid, consts, weights (host), b, ch, n, group, T, sync, zr, z,
-    # stream
-    ("ss_kweight_energy_chain", [_P] * 4 + [_I64, _INT, _I64, _I64, _I64] + [_P] * 4),
-    # T, out[6]: K5's resources
-    ("ss_kweight_energy_chain_attrs", [_I64, _P]),
+     [_P] * 5 + [_INT, _I64, _INT, _I64, _I64, _I64, _INT] + [_P] * 8),
+    # factor, T, lookback, out[6]: K3's (factor 2, 4) or K4's / K5's (0)
+    # resources
+    ("ss_kweight_energy_rows_attrs", [_INT, _I64, _INT, _P]),
     # x, n_valid_rows, taps, factor, rows, n, L, tp_part, sp_part, tp, sp,
     # stream
     ("ss_true_peak_stream", [_P] * 3 + [_INT, _I64, _I64, _I64] + [_P] * 5),

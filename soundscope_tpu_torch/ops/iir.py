@@ -22,14 +22,18 @@ contribute nothing.
 * `kweight_energy_chain` (K5, replaces `kweight_energy_pallas`,
   ``pallas_iir.py:308``) computes K4's z with a sequential schedule.
 
-On the card (csrc/iir_rows.cu) K3 and K4 reuse the split-time passes of
-csrc/iir_common.cuh over steps of `span_length(N)` samples, with a
-correction pass that adds the channels' group sums into z in channel
-order; K5 runs K1's tile-scan core (csrc/iir_tile.cuh, ops/iir_tile.py)
-over the rows of nonzero weight, one read of the input with every
-segment's entry state chained from the one before, groups g | 32, and
-adds the channels in order in a second pass. See those files for the
-designs and what bounds them.
+On the card (csrc/iir_rows.cu) all three run the tile-scan core of
+csrc/iir_tile.cuh (host side ops/iir_tile.py): one launch that reads the
+input once, each segment's entry state taken from the segments before it,
+each thread refiltering 32 samples from shared memory and writing group
+sums (g | 32) per row; a second pass adds the channels in order into z. K3
+(`k3_tile`, segments of TP_TILE) runs K1's polyphase FIR beside them over
+every row; K4 and K5 share `k5_tile` (segments of CHAIN_TILE) over the
+rows of nonzero weight. K3 and K4, which serve a few long rows, take each
+segment's state through a fixed look-back of LOOKBACK segments, which
+shortens a row's chain of waits LOOKBACK + 1 times, and skip the segments
+of a padded bucket that start past n_valid; K5's many rows keep the plain
+chain. See those files for the designs and what bounds them.
 
 K7 (csrc/block_iir.cu, replaces `block_iir_pallas`, pallas_call at
 ``pallas_iir.py:67``) filters with carried state: `block_iir_stream(filt,
@@ -52,15 +56,21 @@ import torch
 from soundscope_tpu_torch.core import constants as C
 from soundscope_tpu_torch.ops import iir_tile
 from soundscope_tpu_torch.ops.biquad import BlockFilter, block_iir
-from soundscope_tpu_torch.ops.truepeak import _polyphase_taps, true_peak_masked
+from soundscope_tpu_torch.ops.truepeak import true_peak_masked
 
 # kernel launches (one per call of an entry on CUDA)
 LAUNCHES = {"K3": 0, "K4": 0, "K5": 0, "K7": 0}
 
-# K5's segment: samples per CTA of the tile-scan core (csrc/iir_tile.cuh)
+# samples per segment (CTA) of the tile-scan core: K3 as K1's, K4 and K5
 CHAIN_TILE = 4096
+TP_TILE = 8192
 
-# longest step of the split-time kernels (K3, K4) and of K6's spans
+# look-back depth of K3 and K4 (csrc/iir_tile.cuh: TILE_LOOKBACK): a row of
+# N samples is N / (T (LOOKBACK + 1)) hops of its chain, 62 for K3 at 2^24
+# samples, 124 for K4; K5 keeps 0
+LOOKBACK = 32
+
+# longest span of K6
 MAX_SPAN = 4096
 
 # K7's step: its prefix walks N / STREAM_STEP steps per row and its
@@ -70,8 +80,8 @@ STREAM_STEP = 256
 
 
 def span_length(n: int, cap: int = MAX_SPAN) -> int:
-    """The largest L = 128 * k <= cap with L | n: the step of K3/K4 and the
-    span of K6 (3200 at 15 s of 48 kHz, 4096 at a power-of-two bucket)."""
+    """The largest L = 128 * k <= cap with L | n: the span of K6 (3200 at
+    15 s of 48 kHz, 4096 at a power-of-two bucket)."""
     if n % 128 or n <= 0:
         raise ValueError(f"the kernels need N a positive multiple of 128, got {n}")
     m = n // 128
@@ -151,25 +161,30 @@ def _launchable(filt: BlockFilter, x, n_valid, weights, what: str):
     return b, ch, n, nv
 
 
-def _rows_kernel(filt, x, n_valid, weights, group, factor, what):
-    """Launch ss_kweight_energy_rows: factor 0 is K4, 2 or 4 is K3."""
+def _tile_rows(filt, x, n_valid, weights, group, factor, T, lookback, what):
+    """Launch ss_kweight_energy_rows on the tile-scan core: factor 0 is K4
+    or K5 (the rows of nonzero weight), 2 or 4 is K3 (every row). Returns
+    (z, tp, sp); tp and sp are None for factor 0."""
     b, ch, n, nv = _launchable(filt, x, n_valid, weights, what)
-    L = span_length(n)
-    if group <= 0 or L % group:
-        raise ValueError(f"{what}: group {group} does not divide the step {L}")
-    rows, nsteps = b * ch, n // L
+    if group <= 0 or iir_tile.TS % group:
+        raise ValueError(f"{what}: group {group} does not divide {iir_tile.TS}")
+    if not iir_tile.modal_blocks_ok(filt.A):
+        raise ValueError(f"{what} is built for the 4-state K-weighting cascade")
+    if ch > iir_tile.MAX_CH:
+        raise ValueError(f"{what} takes at most {iir_tile.MAX_CH} channels, got {ch}")
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
-    coef = filt.constants(L, dev)
-    taps = torch.from_numpy(_polyphase_taps(factor).reshape(-1) if factor
-                            else np.zeros(1, np.float32)).to(dev)
-    w = torch.tensor([float(v) for v in weights], **f32)
-    s_final = torch.empty((rows, nsteps, 4), **f32)
-    s_entry = torch.empty((rows, nsteps, 4), **f32)
-    z = torch.zeros((b, n // group), **f32)
-    peaks = [torch.empty(s, **f32) for s in
-             ((rows, nsteps), (rows, nsteps), (rows,), (rows,))] if factor else [None] * 4
-    tp_part, sp_part, tp, sp = peaks
+    consts = iir_tile.tile_constants(filt, T)
+    taps = iir_tile.fir_taps(max(factor, 1))
+    w = np.asarray([float(v) for v in weights], np.float32)
+    rows, nseg = b * ch, -(-n // T)
+    active = rows if factor else b * int(np.count_nonzero(w))
+    sync = iir_tile.sync_buffer(active, nseg, dev)
+    zr = torch.empty((rows, n // group), **f32)
+    z = torch.empty((b, n // group), **f32)
+    tp_part, sp_part, tp, sp = ([torch.empty(s, **f32) for s in
+                                 ((rows, nseg), (rows, nseg), (rows,), (rows,))]
+                                if factor else [None] * 4)
 
     from soundscope_tpu_torch.ops import _build
 
@@ -179,10 +194,10 @@ def _rows_kernel(filt, x, n_valid, weights, group, factor, what):
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.ss_kweight_energy_rows(
-            x.data_ptr(), nv.data_ptr(), coef.data_ptr(), w.data_ptr(),
-            taps.data_ptr(), factor, b, ch, n, L, group, s_final.data_ptr(),
-            s_entry.data_ptr(), z.data_ptr(), ptr(tp_part), ptr(sp_part),
-            ptr(tp), ptr(sp), torch.cuda.current_stream(dev).cuda_stream)
+            x.data_ptr(), nv.data_ptr(), consts.ctypes.data, taps.ctypes.data,
+            w.ctypes.data, factor, b, ch, n, group, T, lookback, sync.data_ptr(),
+            zr.data_ptr(), z.data_ptr(), ptr(tp_part), ptr(sp_part), ptr(tp), ptr(sp),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on_error(lib, err, what)
     return z, tp, sp
 
@@ -194,82 +209,60 @@ def kweight_energy_tp_prefix(filt: BlockFilter, x: torch.Tensor,
 
     x: (b, ch, N) or (b*ch, N) float32, N % 128 == 0 on CUDA. n_valid: (b,)
     integer valid lengths. weights: the ch channel weights. rate: the
-    sample rate, which must need oversampling (< 192 kHz). Returns
-    (z (b, N/group), tp (rows,), sp (rows,)).
+    sample rate, which must need oversampling (< 192 kHz). On CUDA the
+    group divides 32. Returns (z (b, N/group), tp (rows,), sp (rows,)).
     """
     factor = C.true_peak_factor(rate)
     if factor == 1:
         raise ValueError("K3 needs an oversampling true-peak factor (rate < 192 kHz)")
     if x.device.type == "cpu":
         return kweight_energy_tp_prefix_plain(filt, x, n_valid, weights, rate, group)
-    out = _rows_kernel(filt, x, n_valid, weights, group, factor,
-                       "K3 kweight_energy_tp_prefix")
+    out = _tile_rows(filt, x, n_valid, weights, group, factor, TP_TILE, LOOKBACK,
+                     "K3 kweight_energy_tp_prefix")
     LAUNCHES["K3"] += 1
     return out
 
 
 def kweight_energy_prefix(filt: BlockFilter, x: torch.Tensor,
                           n_valid: torch.Tensor, weights, group: int = 1):
-    """Energy (K4; JAX: kweight_energy_pallas_prefix): z (b, N/group)."""
+    """Energy (K4; JAX: kweight_energy_pallas_prefix): z (b, N/group). On
+    CUDA the group divides 32."""
     if x.device.type == "cpu":
         return kweight_energy_prefix_plain(filt, x, n_valid, weights, group)
-    z, _, _ = _rows_kernel(filt, x, n_valid, weights, group, 0,
-                           "K4 kweight_energy_prefix")
+    z, _, _ = _tile_rows(filt, x, n_valid, weights, group, 0, CHAIN_TILE, LOOKBACK,
+                         "K4 kweight_energy_prefix")
     LAUNCHES["K4"] += 1
     return z
 
 
 def kweight_energy_chain(filt: BlockFilter, x: torch.Tensor,
                          n_valid: torch.Tensor, weights, group: int = 1):
-    """Energy (K5; JAX: kweight_energy_pallas) on the tile-scan core: one
-    read of the input, segments chained row by row. Same arguments and
-    result as `kweight_energy_prefix`; on CUDA the group divides 32."""
-    what = "K5 kweight_energy_chain"
+    """Energy (K5; JAX: kweight_energy_pallas) on the tile-scan core with
+    the plain chain: K4's kernel at look-back depth 0. Same arguments and
+    result as `kweight_energy_prefix`."""
     if x.device.type == "cpu":
         return kweight_energy_chain_plain(filt, x, n_valid, weights, group)
-    b, ch, n, nv = _launchable(filt, x, n_valid, weights, what)
-    if group <= 0 or iir_tile.TS % group:
-        raise ValueError(f"{what}: group {group} does not divide {iir_tile.TS}")
-    if not iir_tile.modal_blocks_ok(filt.A):
-        raise ValueError(f"{what} is built for the 4-state K-weighting cascade")
-    if ch > iir_tile.MAX_CH:
-        raise ValueError(f"{what} takes at most {iir_tile.MAX_CH} channels, got {ch}")
-    dev = x.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    T = CHAIN_TILE
-    consts = iir_tile.tile_constants(filt, T)
-    w = np.asarray([float(v) for v in weights], np.float32)
-    active = int(np.count_nonzero(w))
-    sync = iir_tile.sync_buffer(b * active, -(-n // T), dev)
-    zr = torch.empty((b * ch, n // group), **f32)
-    z = torch.empty((b, n // group), **f32)
-
-    from soundscope_tpu_torch.ops import _build
-
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.ss_kweight_energy_chain(
-            x.data_ptr(), nv.data_ptr(), consts.ctypes.data, w.ctypes.data, b, ch, n,
-            group, T,
-            sync.data_ptr(), zr.data_ptr(), z.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.raise_on_error(lib, err, what)
+    z, _, _ = _tile_rows(filt, x, n_valid, weights, group, 0, CHAIN_TILE, 0,
+                         "K5 kweight_energy_chain")
     LAUNCHES["K5"] += 1
     return z
 
 
-def chain_attributes() -> dict:
-    """K5's resources as the CUDA runtime reports them (needs a card):
-    registers per thread, static and dynamic shared memory bytes per CTA,
-    local (spill) bytes per thread, threads per CTA and CTAs per SM."""
+def rows_attributes(factor: int, lookback: int) -> dict:
+    """Resources of K3's kernel (factor 2 or 4, at TP_TILE) or of K4's
+    (factor 0, lookback LOOKBACK) or K5's (factor 0, lookback 0), at
+    CHAIN_TILE, as the CUDA runtime reports them (needs a card): registers
+    per thread, static and dynamic shared memory bytes per CTA, local
+    (spill) bytes per thread, threads per CTA and CTAs per SM."""
     import ctypes
 
     from soundscope_tpu_torch.ops import _build
 
     lib = _build.library()
     out = (ctypes.c_int * 6)()
+    T = TP_TILE if factor else CHAIN_TILE
     _build.raise_on_error(
-        lib, lib.ss_kweight_energy_chain_attrs(CHAIN_TILE, out), "K5 attributes")
+        lib, lib.ss_kweight_energy_rows_attrs(factor, T, lookback, out), "rows attributes")
     keys = ("registers", "static_smem", "dynamic_smem", "local_bytes",
             "threads", "blocks_per_sm")
     return dict(zip(keys, out))

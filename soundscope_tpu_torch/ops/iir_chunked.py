@@ -65,7 +65,7 @@ from soundscope_tpu_torch.core import constants as C
 from soundscope_tpu_torch.core.device import upload
 from soundscope_tpu_torch.ops import iir_tile
 from soundscope_tpu_torch.ops.biquad import BlockFilter, block_iir
-from soundscope_tpu_torch.ops.truepeak import _polyphase_taps, true_peak_masked
+from soundscope_tpu_torch.ops.truepeak import true_peak_masked
 
 # kernel launches (one per call of kweight_energy_tp_chunked on CUDA)
 LAUNCHES = 0
@@ -159,7 +159,7 @@ def kweight_energy_tp_chunked(filt: BlockFilter, x4: torch.Tensor,
     dev = x4.device
     f32 = dict(dtype=torch.float32, device=dev)
     consts = iir_tile.tile_constants(filt, T)
-    taps = _taps(factor)
+    taps = iir_tile.fir_taps(factor)
     w = np.asarray(weights, np.float32)
     nv = n_valid.to(dev, torch.int64).contiguous()
     if nv.shape != (b,):
@@ -192,23 +192,6 @@ def tile_length(L: int) -> int:
     if T > iir_tile.TS * 32 * iir_tile.MAX_WARPS:
         raise ValueError(f"K1 takes steps of at most 16384 samples, got {L}")
     return T
-
-
-@functools.lru_cache(maxsize=None)
-def _taps(factor: int) -> np.ndarray:
-    """The FIR's F x KP taps as the kernel reads them (host memory). The
-    kernel skips phase 0 and the last tap of the other phases, so it
-    checks that phase 0 is a unit impulse (the sample peak stands in for
-    its outputs) and that those taps are zero."""
-    if factor == 1:
-        return np.zeros(1, np.float32)
-    taps = np.ascontiguousarray(_polyphase_taps(factor), np.float32)
-    c = int(np.argmax(np.abs(taps[0])))
-    if (taps[0, c] != 1.0 or np.abs(np.delete(taps[0], c)).max() > 1e-12
-            or np.any(taps[1:, -1] != 0.0)):
-        raise ValueError("K1's FIR needs phase 0 to be an impulse and the "
-                         "other phases' last tap zero")
-    return taps.reshape(-1)
 
 
 def kernel_attributes(factor: int = 4, T: int = 8192) -> dict:

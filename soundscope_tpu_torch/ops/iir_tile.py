@@ -1,4 +1,4 @@
-"""Host side of the tile-scan core (csrc/iir_tile.cuh) shared by K1 and K5.
+"""Host side of the tile-scan core (csrc/iir_tile.cuh) of K1, K3, K4, K5.
 
 The core runs the 4-state K-weighting recurrence over segments of T
 samples a CTA, 32 samples a thread. Its float32 constants are built here
@@ -13,14 +13,21 @@ kernel's `TileConsts`:
     KS (5, 16):  A^(32 * 2^r)               (the warp's Kogge-Stone rounds)
     AW (16, 16): A^(1024 w)                 (warp w's offset in the CTA)
     AT (16):     A^T                        (the hop to the next segment)
+    LB (6, 8):   A^(T 2^b) as its two 2x2   (the look-back: A^(T m) is the
+                 diagonal blocks              product picked by the bits of m)
 
-The kernel reads A as its two 2x2 diagonal blocks; `modal_blocks_ok`
-checks that the rest of A is rounding noise, as the modal realisation of
-the K-weighting cascade (one complex pole pair per biquad) makes it.
+The kernel reads A and LB as their two 2x2 diagonal blocks;
+`modal_blocks_ok` checks that the rest of A is rounding noise, as the
+modal realisation of the K-weighting cascade (one complex pole pair per
+biquad) makes it, and the powers of a block-diagonal matrix are
+block-diagonal.
 
 `sync_buffer` is the launch's scratch of carry records: int32, all bits
-set, word 0 the ticket counter (tickets count from -1 + 1 = 0), then one
-float4 per (row, segment).
+set, word 0 the ticket counter (tickets count from -1 + 1 = 0), then two
+float4s per (row, segment): the segment's aggregate G and its inclusive
+end state.
+
+`fir_taps` is the true-peak FIR as K1 and K3 read it.
 """
 
 from __future__ import annotations
@@ -30,10 +37,15 @@ import functools
 import numpy as np
 import torch
 
+from soundscope_tpu_torch.ops.truepeak import _polyphase_taps
+
 TS = 32                 # samples per thread
 MAX_WARPS = 16          # warps per CTA: T <= 16384
 MAX_CH = 16             # channels a kernel takes
-TILE_FLOATS = 16 + 4 + 4 + 1 + TS * 4 + 5 * 16 + MAX_WARPS * 16 + 16
+LB_BITS = 6             # look-back powers A^(T 2^b): depths D <= 32 < 2^LB_BITS
+RECORD_WORDS = 8        # int32 words of carry record per (row, segment)
+TILE_FLOATS = (16 + 4 + 4 + 1 + TS * 4 + 5 * 16 + MAX_WARPS * 16 + 16
+               + LB_BITS * 8)
 
 
 def modal_blocks_ok(A: np.ndarray) -> bool:
@@ -42,6 +54,11 @@ def modal_blocks_ok(A: np.ndarray) -> bool:
     off[:2, :2] = 0.0
     off[2:, 2:] = 0.0
     return A.shape == (4, 4) and float(np.abs(off).max()) <= 1e-9 * float(np.abs(A).max())
+
+
+def _blocks(M: np.ndarray) -> np.ndarray:
+    """The two 2x2 diagonal blocks of M, row-major: 8 values."""
+    return np.concatenate([M[:2, :2].reshape(-1), M[2:, 2:].reshape(-1)])
 
 
 @functools.lru_cache(maxsize=64)
@@ -54,8 +71,10 @@ def _tile_constants(a_bytes: bytes, b_bytes: bytes, c_bytes: bytes, d: float,
     W = np.stack([pw(TS - 1 - k) @ B for k in range(TS)])
     KS = np.stack([pw(TS << r) for r in range(5)])
     AW = np.stack([pw(TS * 32 * w) for w in range(MAX_WARPS)])
+    LB = np.stack([_blocks(pw(T << b)) for b in range(LB_BITS)])
     out = np.concatenate([A.reshape(-1), B, Cv, [d], W.reshape(-1), KS.reshape(-1),
-                          AW.reshape(-1), pw(T).reshape(-1)]).astype(np.float32)
+                          AW.reshape(-1), pw(T).reshape(-1),
+                          LB.reshape(-1)]).astype(np.float32)
     assert out.size == TILE_FLOATS
     out.setflags(write=False)
     return out
@@ -73,7 +92,8 @@ def tile_constants(filt, T: int) -> np.ndarray:
 def unpack(consts: np.ndarray) -> dict:
     """The named parts of a TileConsts array (for the tests' emulation)."""
     sizes = [("A", (4, 4)), ("B", (4,)), ("C", (4,)), ("D", ()), ("W", (TS, 4)),
-             ("KS", (5, 4, 4)), ("AW", (MAX_WARPS, 4, 4)), ("AT", (4, 4))]
+             ("KS", (5, 4, 4)), ("AW", (MAX_WARPS, 4, 4)), ("AT", (4, 4)),
+             ("LB", (LB_BITS, 8))]
     out, i = {}, 0
     for name, shape in sizes:
         n = int(np.prod(shape))
@@ -84,4 +104,22 @@ def unpack(consts: np.ndarray) -> dict:
 
 def sync_buffer(rows: int, nseg: int, device) -> torch.Tensor:
     """Ticket counter and carry records of one launch, all bits set."""
-    return torch.full((4 + 4 * rows * nseg,), -1, dtype=torch.int32, device=device)
+    return torch.full((4 + RECORD_WORDS * rows * nseg,), -1, dtype=torch.int32,
+                      device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def fir_taps(factor: int) -> np.ndarray:
+    """The true-peak FIR's F x KP taps as K1 and K3 read them (host
+    memory). The kernels skip phase 0 and the last tap of the other phases,
+    so this checks that phase 0 is a unit impulse (the sample peak stands
+    in for its outputs) and that those taps are zero."""
+    if factor == 1:
+        return np.zeros(1, np.float32)
+    taps = np.ascontiguousarray(_polyphase_taps(factor), np.float32)
+    c = int(np.argmax(np.abs(taps[0])))
+    if (taps[0, c] != 1.0 or np.abs(np.delete(taps[0], c)).max() > 1e-12
+            or np.any(taps[1:, -1] != 0.0)):
+        raise ValueError("the tile kernels' FIR needs phase 0 to be an impulse "
+                         "and the other phases' last tap zero")
+    return taps.reshape(-1)

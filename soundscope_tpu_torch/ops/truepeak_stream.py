@@ -21,10 +21,13 @@ raises.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from soundscope_tpu_torch.core import constants as C
+from soundscope_tpu_torch.core.device import upload
 from soundscope_tpu_torch.ops.iir import span_length
 from soundscope_tpu_torch.ops.truepeak import _polyphase_taps, true_peak_masked
 
@@ -46,6 +49,12 @@ def _rows(x: torch.Tensor, n_valid):
     else:
         raise ValueError(f"{nva.numel()} valid lengths for {rows} rows")
     return x.reshape(rows, n), nv.contiguous(), batch
+
+
+@functools.lru_cache(maxsize=None)
+def _device_taps(factor: int, device: torch.device) -> torch.Tensor:
+    """The F x KP taps on `device`, uploaded once without a host sync."""
+    return upload(np.ascontiguousarray(_polyphase_taps(factor).reshape(-1)), device)
 
 
 def true_peak_stream_plain(x: torch.Tensor, n_valid, rate: int):
@@ -76,7 +85,7 @@ def true_peak_stream(x: torch.Tensor, n_valid, rate: int):
     nsteps = n // L
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
-    taps = torch.from_numpy(_polyphase_taps(factor).reshape(-1)).to(dev)
+    taps = _device_taps(factor, dev)
     tp_part = torch.empty((rows, nsteps), **f32)
     sp_part = torch.empty((rows, nsteps), **f32)
     tp = torch.empty((rows,), **f32)

@@ -62,13 +62,13 @@ def test_meter_checkpoint_jax_to_port_and_back(tmp_path, max_blocks):
     jstep, tstep = jax.jit(JM.meter_step(jcfg)), TM.meter_step(tcfg)
     js_half = jstep(jax_init(jcfg), jnp.asarray(x[:, :half]))
     js_all = jstep(js_half, jnp.asarray(x[:, half:]))
-    ts_half = tstep(init_meter_state(tcfg), torch.from_numpy(x[:, :half]))
+    ts_half = tstep(init_meter_state(tcfg, "cpu"), torch.from_numpy(x[:, :half]))
     ts_all = tstep(ts_half, torch.from_numpy(x[:, half:]))
 
     # JAX writes, the port reads (iir_impl dropped) and pushes on
     pj = str(tmp_path / "jax.npz")
     JCK.save_meter(pj, jcfg, js_half)
-    cfg, loaded = TCK.load_meter(pj)
+    cfg, loaded = TCK.load_meter(pj, "cpu")
     assert cfg == tcfg
     for f in dataclasses.fields(loaded):
         np.testing.assert_array_equal(getattr(loaded, f.name).numpy(),
@@ -90,7 +90,7 @@ def test_meter_checkpoint_jax_to_port_and_back(tmp_path, max_blocks):
     _queries_close(jcfg, jresumed, tcfg, ts_all)
 
     # and the port's own round trip resumes bit for bit
-    cfg3, mine = TCK.load_meter(pt)
+    cfg3, mine = TCK.load_meter(pt, "cpu")
     again = tstep(mine, torch.from_numpy(x[:, half:]))
     for f in dataclasses.fields(again):
         np.testing.assert_array_equal(getattr(again, f.name).numpy(),
@@ -100,7 +100,7 @@ def test_meter_checkpoint_jax_to_port_and_back(tmp_path, max_blocks):
 def test_shape_mismatch_rejected(tmp_path):
     cfg = MeterConfig(channels=2, rate=RATE, max_blocks=100)
     p = str(tmp_path / "meter.npz")
-    TCK.save_meter(p, cfg, init_meter_state(cfg))
+    TCK.save_meter(p, cfg, init_meter_state(cfg, "cpu"))
     data = dict(np.load(p))
     meta = json.loads(bytes(data["__config__"]).decode())
     assert meta == dataclasses.asdict(cfg)
@@ -108,7 +108,7 @@ def test_shape_mismatch_rejected(tmp_path):
     data["__config__"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
     np.savez(p, **data)
     with pytest.raises(ValueError, match="mismatch"):
-        TCK.load_meter(p)
+        TCK.load_meter(p, "cpu")
 
 
 def test_live_checkpoint_both_ways(tmp_path):
@@ -162,7 +162,7 @@ def test_live_stream_begun_in_jax_finishes_in_port():
         "ring": np.array(ja.state.ring), "pos": np.array(ja.state.pos)}
     ta = LiveAnalyzer(MeterConfig(channels=2, rate=RATE, max_blocks=0), seconds=2,
                       device="cpu")
-    ta.state = live_state_from_numpy(fields)
+    ta.state = live_state_from_numpy(fields, "cpu")
     ja.push(inter[cut:])
     ta.push(inter[cut:])
     _same(ja.state.meter, ta.state.meter)

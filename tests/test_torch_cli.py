@@ -48,7 +48,7 @@ def test_analyze_json_matches_jax_cli(wavs, tmp_path):
     rc_j, out_j = _run(jax_main, ["analyze", *wavs, "--json"])
     rc_t, out_t = _run(torch_main, ["analyze", *wavs, "--json", "--spectrogram",
                                     str(tmp_path / "spec"), "--timeline",
-                                    str(tmp_path / "tl")])
+                                    str(tmp_path / "tl"), "--device", "cpu"])
     assert rc_j == rc_t == 0
     rows_j, rows_t = json.loads(out_j), json.loads(out_t)
     assert [r["file"] for r in rows_t] == wavs
@@ -69,16 +69,16 @@ def test_analyze_json_matches_jax_cli(wavs, tmp_path):
 
 
 def test_cli_table_scan_and_errors(wavs, tmp_path):
-    rc, out = _run(torch_main, ["analyze", wavs[0]])
+    rc, out = _run(torch_main, ["analyze", wavs[0], "--device", "cpu"])
     assert rc == 0 and "LUFS-I" in out and "tone" in out
     bad = tmp_path / "bad.wav"
     bad.write_bytes(b"not audio")
-    rc, out = _run(torch_main, ["analyze", str(bad), "--json"])
+    rc, out = _run(torch_main, ["analyze", str(bad), "--json", "--device", "cpu"])
     assert rc == 1 and "error" in json.loads(out)[0]
     rc, out = _run(torch_main, ["scan", os.path.dirname(wavs[0]), "--json",
-                                "--compact"])
+                                "--compact", "--device", "cpu"])
     assert rc == 0 and len(json.loads(out)) == 2
-    assert _run(torch_main, ["scan", str(tmp_path / "empty")])[0] == 1
+    assert _run(torch_main, ["scan", str(tmp_path / "empty"), "--device", "cpu"])[0] == 1
 
 
 def test_cli_subprocess_loads_no_jax(wavs, tmp_path):
@@ -90,7 +90,7 @@ def test_cli_subprocess_loads_no_jax(wavs, tmp_path):
     code = (
         "import sys, json\n"
         "from soundscope_tpu_torch.apps.cli import main\n"
-        f"rc = main(['analyze', {wavs[1]!r}, '--json', '--compact'])\n"
+        f"rc = main(['analyze', {wavs[1]!r}, '--json', '--compact', '--device', 'cpu'])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'soundscope_tpu')]\n"
         "assert rc == 0 and not bad, (rc, bad)\n")

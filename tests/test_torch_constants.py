@@ -102,7 +102,8 @@ def test_block_filter_from_numpy_round_trip(rate):
     the realisation K1 consumes: its A^L agrees with the blocked A^128."""
     jf = jbq.make_block_filter(jkw.kweight_cascade_ss(rate), 128)
     tf = block_filter_from_numpy(np.asarray(jf.Tt), np.asarray(jf.Wt),
-                                 np.asarray(jf.Ot), np.asarray(jf.A_pows), 128)
+                                 np.asarray(jf.Ot), np.asarray(jf.A_pows), 128,
+                                 device="cpu")
     for name in ("Tt", "Wt", "Ot", "A_pows"):
         _same(np.asarray(getattr(jf, name)), getattr(tf, name).numpy())
     own = tbq.make_block_filter(jkw.kweight_cascade_ss(rate), 128)

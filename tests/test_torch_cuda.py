@@ -8,10 +8,15 @@ JAX nor the JAX package, so on a machine without JAX they run with
 Tolerances are the CPU parity pins: K1 sub-block sums rtol 3e-4 / atol
 2e-5, true peak rtol 2e-6 / atol 1e-7, sample peak exact; K2 1e-3 dB;
 K3-K5 z per group rtol 1e-3 / atol 1e-6 * max|z| and sub-block sums as
-K1's; K6 as K1's peaks; K7 y and s_final 2e-5 abs per unit RMS of x; the
+K1's; K6 as K1's peaks; on non-finite input, non-finite exactly where the
+plain version is; K7 y and s_final 2e-5 abs per unit RMS of x; the
 streaming meter at the pins of tests/test_meter_stream.py (1e-3 LU, true
 peak 1e-6).
 """
+
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -82,9 +87,9 @@ def _k1_k5_inputs(cuda):
 
 
 def test_k1_k5_wrappers_do_not_sync_the_host(cuda):
-    """K1, its glue (subblock_sums_from_steps) and K5 enqueue their work
-    without waiting for the device: their constants are kernel parameters
-    or cached device copies made without a host sync."""
+    """K1, its glue (subblock_sums_from_steps), K3, K4 and K5 enqueue their
+    work without waiting for the device: their constants are kernel
+    parameters or cached device copies made without a host sync."""
     from soundscope_tpu_torch.ops import _build
 
     _build.library()
@@ -98,13 +103,35 @@ def test_k1_k5_wrappers_do_not_sync_the_host(cuda):
                 filt, x.reshape(3, 2, -1, 128), nv, (1.0, 1.0), 44100, h)
             K1.subblock_sums_from_steps(steps, h, K1.step_length(n, h), n)
             IIR.kweight_energy_chain(filt, x.reshape(6, n), nv, (1.0, 1.0), 1)
+            IIR.kweight_energy_tp_prefix(filt, x, nv, (1.0, 1.0), 44100, 1)
+            IIR.kweight_energy_prefix(filt, x, nv, (1.0, 1.0), 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("route,rate,b,ch", [("fused", 48000, 2, 2), ("prefix", 192000, 1, 6),
+                                             ("chain", 48000, 512, 2)])
+def test_rows_routes_do_not_sync_the_host(cuda, route, rate, b, ch):
+    """analyze_batch_native on the rows layout, K3, K4 and K5 + K6 routes,
+    enqueues everything without waiting for the device."""
+    n = {"fused": 64 * 1024, "prefix": 256 * 1024, "chain": 30 * 4096}[route]
+    cfg = MeterConfig(channels=ch, rate=rate, max_blocks=0)
+    assert rows_plan(n, b, ch, rate, cfg.block)[0] == route
+    x = _noise((b * ch, n), 12).to(cuda)
+    nv = torch.full((b,), n, device=cuda)
+    analyze_batch_native(cfg, x, nv)               # builds, fills the caches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        analyze_batch_native(cfg, x, nv)
     finally:
         torch.cuda.set_sync_debug_mode("default")
 
 
 def test_k1_k5_two_launches_bit_identical(cuda):
-    """The chained scan waits only for inclusive end states and adds every
-    sum in a fixed order, so two launches give the same bits."""
+    """The chained scan and the look-back take each entry state by a fixed
+    formula and add every sum in a fixed order, so two launches of K1, K3,
+    K4 and K5 give the same bits."""
     n, x, nv, filt = _k1_k5_inputs(cuda)
     x4 = x.reshape(3, 2, -1, 128)
     a = K1.kweight_energy_tp_chunked(filt, x4, nv, (1.0, 1.0), 44100, 4410)
@@ -115,12 +142,31 @@ def test_k1_k5_two_launches_bit_identical(cuda):
         za = IIR.kweight_energy_chain(filt, x, nv, (1.0, 1.0), group)
         zb = IIR.kweight_energy_chain(filt, x, nv, (1.0, 1.0), group)
         assert torch.equal(za, zb)
+        za = IIR.kweight_energy_prefix(filt, x, nv, (1.0, 1.0), group)
+        zb = IIR.kweight_energy_prefix(filt, x, nv, (1.0, 1.0), group)
+        assert torch.equal(za, zb)
+        a = IIR.kweight_energy_tp_prefix(filt, x, nv, (1.0, 1.0), 44100, group)
+        b = IIR.kweight_energy_tp_prefix(filt, x, nv, (1.0, 1.0), 44100, group)
+        for u, v in zip(a, b):
+            assert torch.equal(u, v)
+    # a few long rows: the look-back's chain
+    x = _noise((1, 2, 1 << 22), 22).to(cuda)
+    nv = torch.tensor([(1 << 22) - 777], device=cuda)
+    filt = make_block_filter(kweight_cascade_ss(48000), 128, cuda)
+    a = IIR.kweight_energy_tp_prefix(filt, x, nv, (1.0, 1.0), 48000, 32)
+    b = IIR.kweight_energy_tp_prefix(filt, x, nv, (1.0, 1.0), 48000, 32)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    assert torch.equal(IIR.kweight_energy_prefix(filt, x, nv, (1.0, 1.0), 32),
+                       IIR.kweight_energy_prefix(filt, x, nv, (1.0, 1.0), 32))
 
 
 def test_k1_k5_attributes(cuda):
     for attrs, threads in ((K1.kernel_attributes(4, 8192), 256),
                            (K1.kernel_attributes(1, 16384), 512),
-                           (IIR.chain_attributes(), IIR.CHAIN_TILE // 32)):
+                           (IIR.rows_attributes(4, IIR.LOOKBACK), IIR.TP_TILE // 32),
+                           (IIR.rows_attributes(2, IIR.LOOKBACK), IIR.TP_TILE // 32),
+                           (IIR.rows_attributes(0, IIR.LOOKBACK), IIR.CHAIN_TILE // 32),
+                           (IIR.rows_attributes(0, 0), IIR.CHAIN_TILE // 32)):
         assert attrs["threads"] == threads and attrs["blocks_per_sm"] >= 1
         assert attrs["dynamic_smem"] == 2 * 16 * 8 * (threads + 1)
 
@@ -254,6 +300,44 @@ def test_rows_energy_kernels_match_plain(cuda, kernel, rate, b, ch, group):
         np.testing.assert_array_equal(got[2].cpu().numpy(), want[2].cpu().numpy())
 
 
+@pytest.mark.parametrize("kernel,rate,group", [("K3", 48000, 32), ("K3", 44100, 1),
+                                               ("K4", 48000, 32), ("K4", 44100, 1)])
+def test_rows_energy_kernels_on_few_long_rows(cuda, kernel, rate, group):
+    """One stereo track of 2^22 samples, ragged: 512 of K3's segments a row
+    (1,024 of K4's), past the look-back's depth (256, 128), so each row's
+    chain runs through its inclusive states."""
+    n = 1 << 22
+    x = _noise((1, 2, n), 23).to(cuda)
+    x[..., n // 2:] *= 3.0
+    nv = torch.tensor([n - 48000 * 3 - 333], device=cuda)
+    filt = make_block_filter(kweight_cascade_ss(rate), 128, cuda)
+    w = (1.0, 1.0)
+    if kernel == "K3":
+        got = IIR.kweight_energy_tp_prefix(filt, x, nv, w, rate, group)
+        want = IIR.kweight_energy_tp_prefix_plain(filt, x, nv, w, rate, group)
+        np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(),
+                                   rtol=2e-6, atol=1e-7)
+        np.testing.assert_array_equal(got[2].cpu().numpy(), want[2].cpu().numpy())
+    else:
+        got = (IIR.kweight_energy_prefix(filt, x, nv, w, group),)
+        want = (IIR.kweight_energy_prefix_plain(filt, x, nv, w, group),)
+    _energy_close(got[0], want[0], (rate + 5) // 10, group)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K3", "K4", "K5", "K6"])
+def test_kernels_on_nonfinite_input(cuda, kernel):
+    """NaN, +Inf, -Inf and the bit pattern 0xFFFFFFFF in the input: the
+    launch returns (a child process with a time limit, so a launch that
+    waits forever fails instead of stalling the run) and its outputs are
+    non-finite exactly where the plain version's are (chip_smoke.py's
+    nonfinite_child)."""
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, str(root / "chip_smoke.py"), "--nonfinite", kernel],
+                         cwd=root, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert f"phase nonfinite: {kernel} returned" in out.stdout
+
+
 @pytest.mark.parametrize("rate,n", [(48000, 512 * 20), (96000, 384 * 25),
                                     (44100, 128 * 73)])
 def test_k6_kernel_matches_plain(cuda, rate, n):
@@ -308,8 +392,12 @@ def test_rows_wrappers_raise_on_what_they_cannot_launch(cuda):
     for fn in (IIR.kweight_energy_prefix, IIR.kweight_energy_chain):
         with pytest.raises(ValueError):
             fn(filt, x, nv, w)
-    with pytest.raises(ValueError):                             # g must divide 32
-        IIR.kweight_energy_chain(filt, torch.zeros((1, 2, 1024), device=cuda), nv, w, 64)
+    for fn in (IIR.kweight_energy_chain, IIR.kweight_energy_prefix):   # g must divide 32
+        with pytest.raises(ValueError):
+            fn(filt, torch.zeros((1, 2, 1024), device=cuda), nv, w, 64)
+    with pytest.raises(ValueError):
+        IIR.kweight_energy_tp_prefix(filt, torch.zeros((1, 2, 1024), device=cuda), nv, w,
+                                     48000, 64)
     with pytest.raises(ValueError):
         IIR.kweight_energy_tp_prefix(filt, x, nv, w, 48000)
     xt = torch.zeros((1, 1024, 2), device=cuda).transpose(1, 2)  # not contiguous

@@ -114,7 +114,7 @@ def test_ebu3341_case1():
 
     x = stereo(sine(997.0, 20.0, 48000, -23.0))
     assert rows_plan(pad_bucket(x.shape[1]), 1, 2, 48000, 128) == ("fused", False)
-    res = analyze_array(x, MeterConfig(channels=2, rate=48000))
+    res = analyze_array(x, MeterConfig(channels=2, rate=48000), device="cpu")
     assert abs(float(res.integrated_lufs) + 23.0) < 0.1
     st = res.shortterm[: int(res.n_shortterm)]
     assert st.numel() > 0 and float((st + 23.0).abs().max()) < 0.1
@@ -125,7 +125,7 @@ def test_ebu3341_case1():
 def test_analyze_fn_and_short_inputs():
     cfg = MeterConfig(channels=2, rate=48000)
     x = stereo(sine(997.0, 0.2, 48000, -23.0))      # shorter than 400 ms
-    res = analyze_array(x, cfg)
+    res = analyze_array(x, cfg, device="cpu")
     assert float(res.integrated_lufs) == float("-inf")
     assert int(res.n_momentary) == 0 and int(res.n_shortterm) == 0
     assert float(res.lra) == 0.0

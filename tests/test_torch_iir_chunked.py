@@ -47,7 +47,8 @@ def _inputs(rate, b, raggedness, seed=7):
         nv = np.full((b,), n, np.int32)
     jf = jax_block_filter(kweight_cascade_ss(rate), 128)
     tf = block_filter_from_numpy(np.asarray(jf.Tt), np.asarray(jf.Wt),
-                                 np.asarray(jf.Ot), np.asarray(jf.A_pows), 128)
+                                 np.asarray(jf.Ot), np.asarray(jf.A_pows), 128,
+                                 device="cpu")
     w = tuple(float(v) for v in channel_weights(2))
     return x, nv, jf, tf, w
 

@@ -44,7 +44,8 @@ def _inputs(rate, b, ch=2, seed=3):
     nv = np.asarray([N, N - 700, N // 2][:b], np.int32)
     jf = jax_block_filter(kweight_cascade_ss(rate), 128)
     tf = block_filter_from_numpy(np.asarray(jf.Tt), np.asarray(jf.Wt),
-                                 np.asarray(jf.Ot), np.asarray(jf.A_pows), 128)
+                                 np.asarray(jf.Ot), np.asarray(jf.A_pows), 128,
+                                 device="cpu")
     w = tuple(float(v) for v in channel_weights(ch))
     return x, nv, jf, tf, w
 

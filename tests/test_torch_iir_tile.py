@@ -1,17 +1,20 @@
-"""The tile-scan core of K1 and K5 (csrc/iir_tile.cuh, ops/iir_tile.py),
-emulated in float64 on its float32 host constants, against the JAX package.
+"""The tile-scan core of K1, K3, K4 and K5 (csrc/iir_tile.cuh,
+ops/iir_tile.py), emulated in float64 on its float32 host constants,
+against the JAX package.
 
 `emulate` repeats the kernels' passes in their order: the matrix-form zero
 state of each thread's 32 samples, the Kogge-Stone scan over a warp's
-lanes, the warps in series, the hop from segment to segment
-(s_out = A^T s_in + G), each thread's entry state A^(32 lane) (A^(1024 w)
-s_in + E_w) + F_(lane-1) with the lane power applied bit by bit, the
-refilter with A as its two 2x2 blocks, float32-sized partial sums per
-thread and the fixed-order step (K1) or group and channel (K5) sums. It is
-held to the JAX Pallas kernels in interpret mode and to the XLA chain at
-the port's pins (tests/test_torch_iir_chunked.py, tests/test_torch_iir_rows.py):
-sub-block sums rtol 3e-4 / atol 2e-5, z per group rtol 1e-3 / atol 1e-6 *
-max|z|, true peak rtol 2e-6 / atol 1e-7, sample peak exact.
+lanes, the warps in series, each segment's entry state from a look-back of
+depth D (s_in(t) = A^(T D) incl(t - D - 1) + sum_(j=1..D) A^(T (j-1))
+G(t - j), incl(t) = A^T s_in(t) + G(t); D = 0 is the plain chain), each
+thread's entry state A^(32 lane) (A^(1024 w) s_in + E_w) + F_(lane-1) with
+the lane power applied bit by bit, the refilter with A as its two 2x2
+blocks, float32-sized partial sums per thread and the fixed-order step
+(K1) or group and channel (K3, K4, K5) sums. It is held to the JAX Pallas
+kernels in interpret mode and to the XLA chain at the port's pins
+(tests/test_torch_iir_chunked.py, tests/test_torch_iir_rows.py): sub-block
+sums rtol 3e-4 / atol 2e-5, z per group rtol 1e-3 / atol 1e-6 * max|z|,
+true peak rtol 2e-6 / atol 1e-7, sample peak exact.
 """
 
 import jax
@@ -25,7 +28,11 @@ from soundscope_tpu.ops.biquad import block_iir as jax_block_iir
 from soundscope_tpu.ops.biquad import make_block_filter as jax_block_filter
 from soundscope_tpu.ops.kweight import channel_weights, kweight_cascade_ss
 from soundscope_tpu.ops.loudness import weighted_square
-from soundscope_tpu.ops.pallas_iir import kweight_energy_pallas
+from soundscope_tpu.ops.pallas_iir import (
+    kweight_energy_pallas,
+    kweight_energy_pallas_prefix,
+    kweight_energy_tp_pallas_prefix,
+)
 from soundscope_tpu.ops.pallas_iir_chunked import chunked_plan
 from soundscope_tpu.ops.pallas_iir_chunked import kweight_energy_tp_chunked as jax_k1
 from soundscope_tpu.ops.pallas_iir_chunked import subblock_sums_from_steps as jax_sub
@@ -41,13 +48,22 @@ TS = iir_tile.TS
 def _filters(rate):
     jf = jax_block_filter(kweight_cascade_ss(rate), 128)
     tf = block_filter_from_numpy(np.asarray(jf.Tt), np.asarray(jf.Wt),
-                                 np.asarray(jf.Ot), np.asarray(jf.A_pows), 128)
+                                 np.asarray(jf.Ot), np.asarray(jf.A_pows), 128,
+                                 device="cpu")
     return jf, tf
 
 
-def _scan(k, x, T):
+def _block_matrix(lb):
+    """The 4x4 block-diagonal matrix of a look-back power's 8 values."""
+    M = np.zeros((4, 4))
+    M[:2, :2] = lb[:4].reshape(2, 2)
+    M[2:, 2:] = lb[4:].reshape(2, 2)
+    return M
+
+
+def _scan(k, x, T, D=0):
     """Entry state of every thread: (rows, nseg, P, 4), x (rows, nseg, P, 32)
-    float64, as tile_scan computes it."""
+    float64, as tile_scan computes it with a look-back of depth D."""
     rows, nseg, P, _ = x.shape
     nw = P // 32
     f = np.einsum("rspk,kj->rspj", x, k["W"])
@@ -65,9 +81,26 @@ def _scan(k, x, T):
     for w in range(nw):                             # warps in series
         E[:, :, w] = e
         e = e @ k["AW"][1].T + tot[:, :, w]
+    LB = [_block_matrix(v) for v in k["LB"]]        # LB[b] = A^(T 2^b)
+
+    def power(m):                                   # A^(T m), as lb_power
+        M = np.eye(4)
+        for b in range(len(LB)):
+            if (m >> b) & 1:
+                M = LB[b] @ M
+        return M
+
+    Pj = np.stack([power(j - 1) for j in range(1, D + 1)]) if D else np.zeros((0, 4, 4))
+    PD = power(D)
     s_in = np.zeros((rows, nseg, 4))
-    for s in range(1, nseg):                        # the chain of segments
-        s_in[:, s] = s_in[:, s - 1] @ k["AT"].T + e[:, s - 1]
+    incl = np.zeros((rows, nseg, 4))
+    for s in range(nseg):                           # the look-back
+        m = min(D, s)
+        acc = np.einsum("rmj,mij->ri", e[:, s - m: s][:, ::-1], Pj[:m])
+        if s > D:
+            acc += incl[:, s - D - 1] @ PD.T
+        s_in[:, s] = acc
+        incl[:, s] = acc @ k["AT"].T + e[:, s]
     v = np.einsum("wij,rsj->rswi", k["AW"][:nw], s_in) + E
     v = np.broadcast_to(v[:, :, :, None, :], F.shape).copy()
     lane = np.arange(32)
@@ -90,8 +123,9 @@ def _refilter(k, x, s):
     return y
 
 
-def emulate_tile(filt, x, T):
-    """y (rows, n) of the tile-scan core on x (rows, n) float32."""
+def emulate_tile(filt, x, T, D=0):
+    """y (rows, n) of the tile-scan core on x (rows, n) float32, look-back
+    depth D."""
     rows, n = x.shape
     nseg = -(-n // T)
     xp = np.zeros((rows, nseg * T))
@@ -99,8 +133,27 @@ def emulate_tile(filt, x, T):
     xs = xp.reshape(rows, nseg, T // TS, TS)
     k = {name: np.asarray(v, np.float64)
          for name, v in iir_tile.unpack(iir_tile.tile_constants(filt, T)).items()}
-    y = _refilter(k, xs, _scan(k, xs, T))
+    y = _refilter(k, xs, _scan(k, xs, T, D))
     return y.reshape(rows, -1)[:, :n]
+
+
+def _peaks(x, nvr, rate):
+    """(tp, sp) per row of x (rows, n) float32 as K1 and K3 take them."""
+    rows, n = x.shape
+    valid = np.arange(n)[None] < nvr[:, None]
+    factor = JC.true_peak_factor(rate)
+    sp = np.where(valid, np.abs(x), 0.0).max(-1)
+    tp = np.zeros(rows)
+    if factor > 1:
+        # phases 1 .. F-1 over taps 0 .. KP-2, as TileFir (phase 0 is an
+        # impulse the sample peak covers; the other phases' last tap is 0)
+        taps = iir_tile.fir_taps(factor).reshape(factor, -1).astype(np.float64)
+        kp = taps.shape[1] - 1
+        xh = np.concatenate([np.zeros((rows, kp - 1)), x], -1)
+        for p in range(1, factor):
+            acc = sum(taps[p, t] * xh[:, kp - 1 - t: kp - 1 - t + n] for t in range(kp))
+            tp = np.maximum(tp, np.where(valid, np.abs(acc), 0.0).max(-1))
+    return np.maximum(tp, sp).astype(np.float32), sp.astype(np.float32)
 
 
 def emulate_k1(filt, x, nv, weights, rate, h):
@@ -124,25 +177,15 @@ def emulate_k1(filt, x, nv, weights, rate, h):
     per = L // TS
     steps = np.stack([tot.reshape(rows, -1, per).sum(-1),
                       left.reshape(rows, -1, per).sum(-1)], -1).astype(np.float32)
-    factor = JC.true_peak_factor(rate)
-    sp = np.where(valid, np.abs(x.reshape(rows, n)), 0.0).max(-1)
-    tp = np.zeros(rows)
-    if factor > 1:
-        # phases 1 .. F-1 over taps 0 .. KP-2, as k1_span (phase 0 is an
-        # impulse the sample peak covers; the other phases' last tap is 0)
-        taps = K1._taps(factor).reshape(factor, -1).astype(np.float64)
-        kp = taps.shape[1] - 1
-        xh = np.concatenate([np.zeros((rows, kp - 1)), x.reshape(rows, n)], -1)
-        for p in range(1, factor):
-            acc = sum(taps[p, t] * xh[:, kp - 1 - t: kp - 1 - t + n] for t in range(kp))
-            tp = np.maximum(tp, np.where(valid, np.abs(acc), 0.0).max(-1))
-    return steps, np.maximum(tp, sp).astype(np.float32), sp.astype(np.float32)
+    tp, sp = _peaks(x.reshape(rows, n), nvr, rate)
+    return steps, tp, sp
 
 
-def emulate_k5(filt, x, nv, weights, group):
-    """K5's z (b, n/group): x (b, ch, n) float32."""
+def emulate_k5(filt, x, nv, weights, group, T=IIR.CHAIN_TILE, D=0):
+    """K5's z (b, n/group): x (b, ch, n) float32; with T = CHAIN_TILE and
+    D = LOOKBACK, K4's. K3's z is the same sum at T = TP_TILE."""
     b, ch, n = x.shape
-    y = emulate_tile(filt, x.reshape(b * ch, n), IIR.CHAIN_TILE).reshape(b, ch, n)
+    y = emulate_tile(filt, x.reshape(b * ch, n), T, D).reshape(b, ch, n)
     valid = np.arange(n)[None] < nv[:, None]
     z = np.zeros((b, n // group))
     for c, w in enumerate(weights):
@@ -150,6 +193,15 @@ def emulate_k5(filt, x, nv, weights, group):
             zc = np.where(valid, np.float32(w) * (y[:, c] * y[:, c]), 0.0)
             z = z + zc.reshape(b, -1, group).sum(-1).astype(np.float32)
     return z.astype(np.float32)
+
+
+def emulate_rows(kernel, filt, x, nv, weights, rate, group):
+    """K3's (z, tp, sp) or K4's (z, None, None) on x (b, ch, n) float32."""
+    if kernel == "K4":
+        return emulate_k5(filt, x, nv, weights, group, IIR.CHAIN_TILE, IIR.LOOKBACK), None, None
+    b, ch, n = x.shape
+    z = emulate_k5(filt, x, nv, weights, group, IIR.TP_TILE, IIR.LOOKBACK)
+    return (z, *_peaks(x.reshape(b * ch, n), np.repeat(nv, ch), rate))
 
 
 def _noise(shape, seed):
@@ -243,11 +295,113 @@ def test_k5_algorithm_matches_pallas_interpret_and_xla(rate, b, ch, group):
         np.testing.assert_array_equal(emulate_k5(tf, y, nv, w, group), got)
 
 
+def _jax_rows(kernel, jf, x, nv, w, rate, group):
+    """The JAX K3 / K4 Pallas kernel in interpret mode."""
+    args = (jf.Tt, jf.Wt, jf.Ot, jf.A_pows, jnp.asarray(x), jnp.asarray(nv), w)
+    if kernel == "K4":
+        return np.asarray(kweight_energy_pallas_prefix(*args, interpret=True, group=group)), None
+    z, tp, _ = kweight_energy_tp_pallas_prefix(*args, rate, interpret=True, group=group)
+    return np.asarray(z), np.asarray(tp)
+
+
+def _xla_rows(jf, x, nv, w, rate, group):
+    """The XLA chain: z (b, n/group), tp and sp (b*ch,)."""
+    b, ch, n = x.shape
+    y, _ = jax.jit(jax_block_iir)(jf, jnp.asarray(x), jnp.zeros((b, ch, 4)))
+    y = jnp.where(jnp.arange(n)[None, None] < jnp.asarray(nv)[:, None, None], y, 0.0)
+    z = np.asarray(weighted_square(y, jnp.asarray(w))).reshape(b, -1, group).sum(-1)
+    tp, sp = jax_true_peak(jnp.asarray(x), jnp.asarray(nv)[:, None, None], rate)
+    return z, np.asarray(tp).reshape(-1), np.asarray(sp).reshape(-1)
+
+
+def _energy_pins(got, want, rate, group):
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-6 * np.abs(want).max())
+    hg = JC.samples_in_100ms(rate) // group
+    nb = got.shape[-1] // hg
+    assert nb >= 1
+
+    def sums(z):
+        return z[:, : nb * hg].reshape(z.shape[0], nb, hg).astype(np.float64).sum(-1)
+
+    np.testing.assert_allclose(sums(got), sums(want), rtol=3e-4, atol=2e-5)
+
+
+# kernel, rate, b, ch, group: N = 28,928 leaves a partial last segment at
+# both tiles (K3's 8,192, K4's 4,096); ragged n_valid; 44.1 kHz groups of
+# 1; 5.1 with the zero-weight LFE (K3 still takes its peaks)
+K3_K4_CASES = [("K3", 48000, 3, 2, 32), ("K3", 44100, 3, 2, 1), ("K3", 96000, 2, 6, 32),
+               ("K4", 48000, 3, 2, 32), ("K4", 44100, 3, 2, 1), ("K4", 192000, 2, 6, 32)]
+
+
+@pytest.mark.parametrize("kernel,rate,b,ch,group", K3_K4_CASES)
+def test_k3_k4_algorithm_matches_pallas_interpret_and_xla(kernel, rate, b, ch, group):
+    n = 226 * 128
+    jf, tf = _filters(rate)
+    x = _noise((b, ch, n), rate + 20 * b + ch)
+    nv = np.asarray([n, n - 700, n // 2 + 5][:b], np.int32)
+    w = tuple(float(v) for v in channel_weights(ch))
+    z, tp, sp = emulate_rows(kernel, tf, x, nv, w, rate, group)
+    assert z.shape == (b, n // group)
+    want, tpk = _jax_rows(kernel, jf, x, nv, w, rate, group)
+    _energy_pins(z, want, rate, group)
+    chain, tpx, spx = _xla_rows(jf, x, nv, w, rate, group)
+    _energy_pins(z, chain, rate, group)
+    if kernel == "K3":
+        np.testing.assert_allclose(tp, tpk, rtol=2e-6, atol=1e-7)
+        np.testing.assert_allclose(tp, tpx, rtol=2e-6, atol=1e-7)
+        np.testing.assert_array_equal(sp, spx)
+    if ch == 6:
+        y = x.copy()
+        y[:, 3] *= 7.0                              # the LFE adds no energy
+        zy, tpy, _ = emulate_rows(kernel, tf, y, nv, w, rate, group)
+        np.testing.assert_array_equal(zy, z)
+        if kernel == "K3":
+            lfe = np.arange(b * ch) % ch == 3
+            assert (tpy[lfe] > 6 * tp[lfe]).all()
+
+
+# a few long rows: enough segments at the kernels' own tile that the
+# look-back reaches the inclusive state depth + 1 segments back, and a
+# partial last segment
+@pytest.mark.parametrize("kernel,n", [("K3", 2200 * 128), ("K4", 1129 * 128)])
+def test_k3_k4_long_rows_match_xla(kernel, n):
+    T = IIR.TP_TILE if kernel == "K3" else IIR.CHAIN_TILE
+    assert -(-n // T) > IIR.LOOKBACK + 1 and n % T
+    rate = 48000
+    jf, tf = _filters(rate)
+    x = _noise((1, 2, n), 7)
+    nv = np.asarray([n - 5000], np.int32)
+    w = tuple(float(v) for v in channel_weights(2))
+    z, tp, sp = emulate_rows(kernel, tf, x, nv, w, rate, 32)
+    chain, tpx, spx = _xla_rows(jf, x, nv, w, rate, 32)
+    _energy_pins(z, chain, rate, 32)
+    if kernel == "K3":
+        np.testing.assert_allclose(tp, tpx, rtol=2e-6, atol=1e-7)
+        np.testing.assert_array_equal(sp, spx)
+
+
+@pytest.mark.parametrize("D", [0, 1, 3, 32])
+def test_lookback_reproduces_the_recurrence(D):
+    """Any look-back depth gives the serial filter: segments of 1,024
+    samples (one warp), 41 of them with a partial last one, so the
+    inclusive state D + 1 segments back enters for every D."""
+    _, tf = _filters(48000)
+    T = 1024
+    x = _noise((2, 40 * T + 512), 11)
+    s = np.zeros((2, 4))
+    want = np.empty(x.shape)
+    for i in range(x.shape[1]):
+        want[:, i] = s @ tf.Cv + tf.D * x[:, i]
+        s = s @ tf.A.T + x[:, i, None] * tf.Bv
+    np.testing.assert_allclose(emulate_tile(tf, x, T, D), want, rtol=0, atol=2e-6)
+
+
 @pytest.mark.parametrize("rate", [44100, 48000, 96000, 192000])
 def test_host_matrices_reproduce_the_recurrence(rate):
     """Each float32 matrix of TileConsts is the float64 recurrence rounded
-    once: W[k] = A^(31-k) B, KS[r] = A^(32 2^r), AW[w] = A^(1024 w), A^T;
-    and the emulated scan of one segment equals the serial filter."""
+    once: W[k] = A^(31-k) B, KS[r] = A^(32 2^r), AW[w] = A^(1024 w), A^T,
+    and the look-back's A^(T (m+1)), which are block-diagonal; and the
+    emulated scan of one segment equals the serial filter."""
     _, tf = _filters(rate)
     T = 8192
     k = iir_tile.unpack(iir_tile.tile_constants(tf, T))
@@ -268,7 +422,15 @@ def test_host_matrices_reproduce_the_recurrence(rate):
         close(k["KS"][r], power(TS << r))
     for w in range(iir_tile.MAX_WARPS):
         close(k["AW"][w], power(1024 * w))
-    close(k["AT"], power(T))
+    AT = power(T)
+    close(k["AT"], AT)
+    lb = AT
+    for b in range(iir_tile.LB_BITS):                  # A^(T 2^b), its 2x2 blocks
+        close(k["LB"][b], np.concatenate([lb[:2, :2].reshape(-1), lb[2:, 2:].reshape(-1)]))
+        off = lb.copy()
+        off[:2, :2] = off[2:, 2:] = 0.0
+        assert np.abs(off).max() <= 1e-9
+        lb = lb @ lb
     close(k["A"], A.astype(np.float32))
     assert iir_tile.modal_blocks_ok(tf.A)
 
@@ -295,7 +457,8 @@ def test_tile_constants_are_cached_and_read_only():
 
 def test_sync_buffer_layout():
     buf = iir_tile.sync_buffer(3, 5, "cpu")
-    assert buf.dtype == torch.int32 and buf.numel() == 4 + 4 * 15
+    # the ticket counter, then two float4s (G, incl) per (row, segment)
+    assert buf.dtype == torch.int32 and buf.numel() == 4 + 8 * 15
     assert bool((buf == -1).all())
     assert K1.tile_length(128) == 8192 and K1.tile_length(16384) == 16384
     assert K1.step_length(65536, 19200) == 16384        # the 192 kHz case above

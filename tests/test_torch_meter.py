@@ -108,7 +108,7 @@ def test_meter_matches_jax(ch, rate, max_blocks, sizes, seconds):
     jcfg = JaxMeterConfig(channels=ch, rate=rate, max_blocks=max_blocks)
     tcfg = MeterConfig(channels=ch, rate=rate, max_blocks=max_blocks)
     js = _jax_push(jcfg, jax_init(jcfg), x, sizes)
-    ts = _torch_push(tcfg, init_meter_state(tcfg), x, sizes)
+    ts = _torch_push(tcfg, init_meter_state(tcfg, "cpu"), x, sizes)
     assert int(ts.frames_total) == x.shape[1]
     _same_state(js, ts)
     _same_queries(jcfg, js, tcfg, ts)
@@ -121,7 +121,7 @@ def test_exact_history_overflows_into_histogram():
     jcfg = JaxMeterConfig(channels=2, rate=48000, max_blocks=40)
     tcfg = MeterConfig(channels=2, rate=48000, max_blocks=40)
     js = _jax_push(jcfg, jax_init(jcfg), x, [48000])
-    ts = _torch_push(tcfg, init_meter_state(tcfg), x, [48000])
+    ts = _torch_push(tcfg, init_meter_state(tcfg, "cpu"), x, [48000])
     assert int(ts.block_count) > tcfg.max_blocks
     assert int(ts.lra_count) > tcfg.max_lra_blocks
     _same_state(js, ts)
@@ -136,7 +136,7 @@ def test_pushes_longer_than_the_rings():
     tcfg = MeterConfig(channels=2, rate=48000, max_blocks=100)
     sizes = [4 * 48000 + 333, 1000]
     js = _jax_push(jcfg, jax_init(jcfg), x, sizes)
-    ts = _torch_push(tcfg, init_meter_state(tcfg), x, sizes)
+    ts = _torch_push(tcfg, init_meter_state(tcfg, "cpu"), x, sizes)
     _same_state(js, ts)
     _same_queries(jcfg, js, tcfg, ts)
 
@@ -148,7 +148,7 @@ def test_stream_begun_in_jax_finishes_in_port():
     tcfg = MeterConfig(channels=2, rate=48000, max_blocks=1000)
     j_half = _jax_push(jcfg, jax_init(jcfg), x[:, :half], PUSHES_A)
     j_all = _jax_push(jcfg, j_half, x[:, half:], PUSHES_B)
-    carried = meter_state_from_numpy(_jax_fields(j_half))
+    carried = meter_state_from_numpy(_jax_fields(j_half), "cpu")
     t_all = _torch_push(tcfg, carried, x[:, half:], PUSHES_B)
     _same_state(j_all, t_all)
     _same_queries(jcfg, j_all, tcfg, t_all)
@@ -157,8 +157,8 @@ def test_stream_begun_in_jax_finishes_in_port():
 def test_chunk_boundaries_do_not_matter():
     x = _signal(2, 48000, 3, seed=14)
     cfg = MeterConfig(channels=2, rate=48000, max_blocks=1000)
-    s1 = _torch_push(cfg, init_meter_state(cfg), x, [48000 * 3])
-    s2 = _torch_push(cfg, init_meter_state(cfg), x, PUSHES_B)
+    s1 = _torch_push(cfg, init_meter_state(cfg, "cpu"), x, [48000 * 3])
+    s2 = _torch_push(cfg, init_meter_state(cfg, "cpu"), x, PUSHES_B)
     for q in ("integrated_lufs", "shortterm_lufs", "momentary_lufs"):
         assert abs(float(getattr(TM, q)(cfg, s1)) - float(getattr(TM, q)(cfg, s2))) < 1e-3
     np.testing.assert_allclose(s1.true_peak.numpy(), s2.true_peak.numpy(), atol=1e-6)
@@ -168,7 +168,7 @@ def test_chunk_boundaries_do_not_matter():
 
 def test_window_ends_at_last_sample_and_zero_state():
     cfg = MeterConfig(channels=1, rate=48000, max_blocks=100)
-    s = init_meter_state(cfg)
+    s = init_meter_state(cfg, "cpu")
     assert float(TM.integrated_lufs(cfg, s)) == -np.inf
     assert float(TM.shortterm_lufs(cfg, s)) == -np.inf
     assert float(TM.loudness_range_lu(cfg, s)) == 0.0
@@ -182,7 +182,7 @@ def test_window_ends_at_last_sample_and_zero_state():
 
 def test_frames_total_wraps_as_int32():
     cfg = MeterConfig(channels=1, rate=48000, max_blocks=0)
-    s = init_meter_state(cfg)
+    s = init_meter_state(cfg, "cpu")
     s.frames_total = torch.tensor(2**31 - 100, dtype=torch.int32)
     s = TM.meter_step(cfg)(s, torch.zeros((1, 300)))
     assert s.frames_total.dtype == torch.int32

@@ -98,7 +98,7 @@ def test_spectrogram_matches_jax(rate):
     display path below; the same windows either way."""
     rng = np.random.default_rng(rate)
     x = (rng.standard_normal((2, 2048 * 20 + 777)) * 0.3).astype(np.float32)
-    got = spectrogram(x, rate)
+    got = spectrogram(x, rate, "cpu")
     want = jax_spectrogram(x, rate)
     assert got["mid_db"].shape == want["mid_db"].shape == (13, 128)
     np.testing.assert_array_equal(got["chart_x"], want["chart_x"])
