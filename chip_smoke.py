@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --nonfinite K3     (one kernel on non-finite input)
+    python3 chip_smoke.py --k7-times DIR     (K7's timings of the port in DIR)
 
 Phases, in order (any failure exits non-zero before the result line):
 
@@ -38,9 +39,9 @@ Phases, in order (any failure exits non-zero before the result line):
    at full length), and K3 and K4 on a few long rows (1, 2, 2^22), ragged,
    at 48 and 44.1 kHz. z per group rtol 1e-3 / atol 1e-6 * max|z|,
    sub-block sums rtol 3e-4 / atol 2e-5, true peak rtol 2e-6 / atol 1e-7,
-   sample peak exact. K3's, K4's and K5's resources; two launches
-   bit-identical (K5 on the slice, K3 and K4 at their shapes). Then K1,
-   K3, K4, K5 and K6 on rows holding NaN, +Inf, -Inf and the bit pattern
+   sample peak exact. K3's to K7's resources; two launches bit-identical
+   (K6 in every case, K5 on the slice, K3 and K4 at their shapes). Then
+   K1 and K3-K7 on rows holding NaN, +Inf, -Inf and the bit pattern
    0xFFFFFFFF, each launch in a child process that must end within 300 s:
    non-finite exactly where the plain version is, finite values within
    the pins, sample peaks equal.
@@ -59,7 +60,10 @@ Phases, in order (any failure exits non-zero before the result line):
 10. K7 (ops/iir.block_iir_stream) against its plain version on the card:
    the CPU tests' cases, then the 60 Hz tick (2, 800), the 1 s slab
    (2, 44100) and the 5.1 slab (6, 192000), each from a random carried
-   state: y and s_final within 2e-5 per unit RMS of x. Then, at those
+   state: y and s_final within 2e-5 per unit RMS of x; at those three
+   shapes also the meter's strided view of interleaved audio, within the
+   pin and bit-identical to its contiguous copy and to a second launch.
+   Then, at those
    three shapes and 64 seeds each (x and the carried state drawn anew per
    seed), K7 and its plain version against a float64 evaluation of the
    same filter: the kernel within 2e-5 per unit RMS of x in y and s_final,
@@ -73,10 +77,15 @@ Phases, in order (any failure exits non-zero before the result line):
    44.1 kHz stereo track through Analyzer.add_samples in 1 s slabs
    (integrated within 1e-3 LU and true peak within 1e-6 of analyze_array
    on the card); EBU Tech 3341 case 1 through the Analyzer at 48 kHz.
-12. Timings with CUDA events: K7 and its plain version at the tick and
-   slab shapes, ms per live push, per frame() and per 1 s slab of
+12. Timings with CUDA events: K7 and its plain version at the tick, 1 s
+   slab and 5.1 slab shapes, with K7's device time per call and its
+   device operations (torch.profiler: the kernel and the reset of its
+   records), ms per live push, per frame() and per 1 s slab of
    add_samples, audio seconds per wall second of each streaming path, and
    the device operations per push (torch.profiler).
+
+--k7-times DIR prints phase 12's K7 lines for the port in DIR, so that an
+earlier commit unpacked there is timed in the same run on the same card.
 
 The plain versions run with TF32 off. Prints one JSON line of per-kernel
 numbers (each with its bound: the larger of its bytes over 3.35 TB/s and
@@ -236,12 +245,16 @@ def rows_compare(IIR, K6, filt, x, nv, rate, group, kernels):
             errs[k] = energy_close(f"{k} {tag}", got, want, h, group)
     if "K6" in kernels:
         got = K6.true_peak_stream(x, nv, rate)
+        again = K6.true_peak_stream(x, nv, rate)
         want = K6.true_peak_stream_plain(x, nv, rate)
         torch.cuda.synchronize()
         errs["K6"] = check_close(f"K6 {tag} true peak", got[0], want[0], 2e-6, 1e-7)
         check_close(f"K6 {tag} sample peak", got[1], want[1], 0.0, 0.0)
+        require(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+                f"K6 {tag}: two launches differ")
     print(f"phase rows: {tag} " + " ".join(
-        f"{k} max abs err {v:.3e}" for k, v in errs.items()) + " ok")
+        f"{k} max abs err {v:.3e}" for k, v in errs.items())
+        + (", K6 two launches bit-identical" if "K6" in kernels else "") + " ok")
     return errs
 
 
@@ -273,7 +286,7 @@ def k1_compare(K1, filt_fn, x4, nv, rate):
     return err
 
 
-NONFINITE_KERNELS = ("K1", "K3", "K4", "K5", "K6")
+NONFINITE_KERNELS = ("K1", "K3", "K4", "K5", "K6", "K7")
 
 
 def nonfinite_input():
@@ -316,7 +329,7 @@ def nonfinite_close(what, got, ref, rtol, atol) -> int:
 
 
 def nonfinite_child(kernel: str) -> int:
-    """One launch of `kernel` (K1, K3, K4, K5 or K6) on nonfinite_input(),
+    """One launch of `kernel` (K1, K3-K7) on nonfinite_input(),
     against its plain version on the same input. Output items that end
     before their track's first non-finite sample are held to the plain
     version on the input with the non-finite samples zeroed: the plain
@@ -324,7 +337,11 @@ def nonfinite_child(kernel: str) -> int:
     Toeplitz matrix, so 0 x NaN spreads a NaN back to the block's start,
     while the filter's output before the sample does not depend on it.
     Run as a child process (python3 chip_smoke.py --nonfinite K3) so that
-    a launch that hangs is killed and fails the check."""
+    a launch that hangs is killed and fails the check. K7 takes the six
+    rows twice over (66 segments a row, past its look-back) from a finite
+    carried state, with no n_valid: its y from each row's first non-finite
+    sample on, and the end state of such a row, are non-finite as the
+    plain version's, the rest within 2e-5 per unit RMS of x."""
     import torch
 
     from soundscope_tpu_torch.ops import iir as IIR
@@ -341,6 +358,8 @@ def nonfinite_child(kernel: str) -> int:
     filt = make_block_filter(kweight_cascade_ss(48000), 128, dev)
     w = (1.0, 1.0)
     peaks = None
+    if kernel == "K7":
+        return nonfinite_k7(IIR, filt, x, xc)
     if kernel == "K6":
         got = K6.true_peak_stream(xg, nvg, 48000)
         torch.cuda.synchronize()
@@ -398,9 +417,38 @@ def nonfinite_child(kernel: str) -> int:
     return 0
 
 
+def nonfinite_k7(IIR, filt, x, xc) -> int:
+    """K7's part of nonfinite_child: x, xc the input and its clean copy."""
+    import torch
+
+    dev = torch.device("cuda")
+    rows = np.concatenate([x.reshape(6, -1)] * 2, -1)
+    clean = np.concatenate([xc.cpu().numpy().reshape(6, -1)] * 2, -1)
+    n = rows.shape[-1]
+    bad = ~np.isfinite(rows)
+    first = np.array([(np.flatnonzero(m).tolist() + [n])[0] for m in bad], np.int64)
+    xg, xcg = torch.from_numpy(rows).to(dev), torch.from_numpy(clean).to(dev)
+    s0 = torch.from_numpy(
+        (np.random.default_rng(SEED + 6).standard_normal((6, 4)) * 0.1).astype(np.float32)).to(dev)
+    y, s = IIR.block_iir_stream(filt, xg, s0)
+    torch.cuda.synchronize()
+    yw, sw = IIR.block_iir_stream_plain(filt, xg, s0)
+    yc, _ = IIR.block_iir_stream_plain(filt, xcg, s0)
+    tol = 2e-5 * float(xcg.double().pow(2).mean().sqrt())
+    before = torch.arange(n)[None] < torch.from_numpy(first)[:, None]
+    ref = torch.where(before, yc.cpu(), yw.cpu())
+    ny = nonfinite_close("non-finite K7 y", y, ref, 0.0, tol)
+    ns = nonfinite_close("non-finite K7 s_final", s, sw, 0.0, tol)
+    require(ny > 0 and ns > 0,
+            f"non-finite K7: {ny} y values and {ns} state values non-finite")
+    print(f"phase nonfinite: K7 returned; {ny} of {ref.numel()} y values and the end states "
+          f"of {ns // 4} of 6 rows non-finite as the plain version's ok")
+    return 0
+
+
 def nonfinite_phase(on, limit_s: float = 300.0) -> None:
-    """K1, K3, K4 and K5 on non-finite input, each launch in a child
-    process (all started together) that must end within limit_s."""
+    """K1 and K3-K7 on non-finite input, each launch in a child process
+    (all started together) that must end within limit_s."""
     procs = {k: subprocess.Popen([sys.executable, os.path.abspath(__file__), "--nonfinite", k],
                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for k in NONFINITE_KERNELS}
@@ -446,11 +494,31 @@ def k7_phase(dev, gen, on) -> tuple[float, float]:
         tol = 2e-5 * max(float(x.pow(2).mean().sqrt()), 1e-3)
         ey = check_close(f"K7 rate {rate} shape {shape} y", y, yp, 0.0, tol)
         es = check_close(f"K7 rate {rate} shape {shape} s_final", s, sp, 0.0, tol)
+        extra = ""
         if shape in ((2, 800), (2, 44100), (6, 192000)):
             worst = max(worst, ey)
             worst_rel = max(worst_rel, ey / float(x.pow(2).mean().sqrt()))
+            # the meter's view of interleaved audio: sample stride C, channel
+            # c 4c bytes in; the same bits as its contiguous copy, and as a
+            # second launch
+            c, n = shape
+            view = (torch.randn(c * n, generator=gen, device=dev) * 0.3).reshape(n, c).T
+            yv, sv = IIR.block_iir_stream(filt, view, s0)
+            yv2, sv2 = IIR.block_iir_stream(filt, view, s0)
+            yc, sc = IIR.block_iir_stream(filt, view.contiguous(), s0)
+            ypv, spv = IIR.block_iir_stream_plain(filt, view, s0)
+            torch.cuda.synchronize()
+            tolv = 2e-5 * float(view.pow(2).mean().sqrt())
+            check_close(f"K7 strided {shape} y", yv, ypv, 0.0, tolv)
+            check_close(f"K7 strided {shape} s_final", sv, spv, 0.0, tolv)
+            require(torch.equal(yv, yv2) and torch.equal(sv, sv2),
+                    f"K7 {shape}: two launches differ")
+            require(torch.equal(yv, yc) and torch.equal(sv, sc),
+                    f"K7 {shape}: the strided view and its copy differ")
+            extra = ("; strided view within tol, equal to its copy and to a second "
+                     "launch")
         print(f"phase k7: rate {rate} shape {shape} y max abs err {ey:.3e} "
-              f"s_final {es:.3e} (tol {tol:.2e}) ok {on}")
+              f"s_final {es:.3e} (tol {tol:.2e}){extra} ok {on}")
     return worst, worst_rel
 
 
@@ -662,17 +730,48 @@ def streaming_phase(dev, gen, on) -> dict:
 def device_ops_per_call(fn, calls: int):
     """Device operations (kernels, copies, memsets) per call of fn, counted
     by torch.profiler; None when the trace shows no device activity."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    return device_profile(fn, calls, "").get("ops")
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
-    return n / calls if n else None
+
+# K7 at the meter's shapes: the 60 Hz tick, the 1 s slab at 44.1 kHz and
+# the 5.1 slab at 192 kHz (name, rate, shape, calls a timing)
+K7_SHAPES = (("tick", 48000, (2, 800), 400), ("slab", 44100, (2, 44100), 200),
+             ("5.1 slab", 192000, (6, 192000), 100))
+
+
+def k7_timings(dev, gen, on) -> dict:
+    """K7 at K7_SHAPES: the sustained CUDA-event time per call (kernel,
+    plain, kernel), and its device time per call from torch.profiler, the
+    sum of every device operation of the call (K7's kernels and the reset
+    of its records), with their count. Times the soundscope_tpu_torch on
+    sys.path."""
+    import torch
+
+    from soundscope_tpu_torch.ops import iir as IIR
+    from soundscope_tpu_torch.ops.biquad import make_block_filter
+    from soundscope_tpu_torch.ops.kweight import kweight_cascade_ss
+
+    out = {}
+    for name, rate, shape, iters in K7_SHAPES:
+        filt = make_block_filter(kweight_cascade_ss(rate), 128, dev)
+        x = torch.randn(shape, generator=gen, device=dev) * 0.3
+        s0 = torch.zeros((shape[0], 4), device=dev)
+
+        def call():
+            IIR.block_iir_stream(filt, x, s0)
+
+        k = time_ms(call, iters)
+        p = time_ms(lambda: IIR.block_iir_stream_plain(filt, x, s0), iters // 4)
+        k = (k + time_ms(call, iters)) / 2
+        prof = device_profile(call, 50, "")
+        dev_ms, ops = prof.get("device_ms"), prof.get("ops")
+        out[f"k7_{name}"] = (k, p, shape, dev_ms, ops)
+        print(f"timing K7 kernel {k:.4f} ms plain {p:.4f} ms ({name} shape {shape}) {on}")
+        print(f"profile K7 {name} shape {shape}: device "
+              + ("not measured" if dev_ms is None else f"{dev_ms * 1000:.3f} us")
+              + " per call in " + ("?" if ops is None else f"{ops:.1f}")
+              + f" device operations (torch.profiler, 50 calls) {on}")
+    return out
 
 
 def streaming_timings(dev, gen, on) -> dict:
@@ -682,21 +781,8 @@ def streaming_timings(dev, gen, on) -> dict:
     from soundscope_tpu_torch.core.config import MeterConfig
     from soundscope_tpu_torch.models.analyzer import Analyzer
     from soundscope_tpu_torch.models.live import LiveAnalyzer
-    from soundscope_tpu_torch.ops import iir as IIR
-    from soundscope_tpu_torch.ops.biquad import make_block_filter
-    from soundscope_tpu_torch.ops.kweight import kweight_cascade_ss
 
-    out = {}
-    for name, rate, shape, iters in (("tick", 48000, (2, 800), 400),
-                                     ("slab", 44100, (2, 44100), 200)):
-        filt = make_block_filter(kweight_cascade_ss(rate), 128, dev)
-        x = torch.randn(shape, generator=gen, device=dev) * 0.3
-        s0 = torch.zeros((shape[0], 4), device=dev)
-        k = time_ms(lambda: IIR.block_iir_stream(filt, x, s0), iters)
-        p = time_ms(lambda: IIR.block_iir_stream_plain(filt, x, s0), iters // 4)
-        k = (k + time_ms(lambda: IIR.block_iir_stream(filt, x, s0), iters)) / 2
-        out[f"k7_{name}"] = (k, p, shape)
-        print(f"timing K7 kernel {k:.4f} ms plain {p:.4f} ms ({name} shape {shape}) {on}")
+    out = k7_timings(dev, gen, on)
 
     cfg = MeterConfig(channels=2, rate=48000, max_blocks=0)
     live = LiveAnalyzer(cfg, device=dev)
@@ -798,9 +884,11 @@ def cufft_yardstick(x, on) -> None:
 
 
 def device_profile(fn, iters: int, match: str) -> dict:
-    """torch.profiler over iters calls of fn: device kernel time per call,
-    the share of it in kernels whose name contains `match`, the host wall
-    per call, and the device's idle share of that wall."""
+    """torch.profiler over iters calls of fn: device time per call (every
+    kernel, copy and memset), the share of it in operations whose name
+    contains `match`, the host wall per call, the device's idle share of
+    that wall and the device operations per call; {} when the trace shows
+    no device activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -828,7 +916,28 @@ def device_profile(fn, iters: int, match: str) -> dict:
             end = b
     return {"device_ms": total / 1e3 / iters, "match_ms": ours / 1e3 / iters,
             "share": ours / total, "wall_ms": wall_us / 1e3 / iters,
-            "idle_share": max(0.0, 1.0 - busy / wall_us)}
+            "idle_share": max(0.0, 1.0 - busy / wall_us), "ops": len(spans) / iters}
+
+
+def k7_times_of(root: str) -> int:
+    """--k7-times ROOT: k7_timings for the port under ROOT (a checkout, such
+    as an unpacked earlier commit, to compare in one run on one card)."""
+    import torch
+
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import soundscope_tpu_torch
+    from soundscope_tpu_torch.ops import _build
+
+    require(os.path.abspath(soundscope_tpu_torch.__file__).startswith(root + os.sep),
+            f"--k7-times: soundscope_tpu_torch imported from {soundscope_tpu_torch.__file__}")
+    _build.library()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    print(f"k7 times of {root}")
+    k7_timings(dev, gen, f"[{card_line()}]")
+    return 0
 
 
 def main() -> int:
@@ -840,6 +949,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if sys.argv[1:2] == ["--nonfinite"]:
         return nonfinite_child(sys.argv[2])
+    if sys.argv[1:2] == ["--k7-times"]:
+        return k7_times_of(sys.argv[2])
     from soundscope_tpu_torch.apps import cli
     from soundscope_tpu_torch.core.config import MeterConfig
     from soundscope_tpu_torch.models.engine import (
@@ -1102,6 +1213,10 @@ def main() -> int:
           f"{json.dumps(IIR.rows_attributes(0, IIR.LOOKBACK))}")
     print(f"k5 attributes (k5_tile, T {IIR.CHAIN_TILE}, look-back 0): "
           f"{json.dumps(IIR.rows_attributes(0, 0))}")
+    for factor in (4, 2):
+        print(f"k6 attributes (factor {factor}, T {K6.TILE}): "
+              f"{json.dumps(K6.kernel_attributes(factor))}")
+    print(f"k7 attributes (T {IIR.CHAIN_TILE}): {json.dumps(IIR.stream_attributes())}")
     w2, w6 = (1.0, 1.0), tuple(float(v) for v in channel_weights(6))
     for what, fn in [
             ("K5 library slice", lambda: (IIR.kweight_energy_chain(
@@ -1310,7 +1425,7 @@ def main() -> int:
         "K6": bound(4 * (n_slice + 2 * x_slice.shape[0]), n_slice * fir_ops(4)),
         "K7": bound(4 * (2 * tick + 2 * 8), tick * FILTER_OPS),
     }
-    k7_ms, k7_plain_ms, _ = st["k7_tick"]
+    k7_ms, k7_plain_ms = st["k7_tick"][:2]
     rows = [
         ("K1 kweight_energy_tp_chunked", "iir_chunked.cu", "pallas_iir_chunked.py:383",
          launches["K1"], k1_err, k1_ms, k1_plain_ms),
@@ -1346,7 +1461,9 @@ def main() -> int:
             ("K6 at the library shape", bound(4 * (n_lib + 2 * x_lib.shape[0]),
                                               n_lib * fir_ops(4)), k6_lib_ms),
             ("K7 at the slab shape", bound(4 * (2 * 2 * 44100 + 2 * 8), 2 * 44100 * FILTER_OPS),
-             k7_slab_ms)]:
+             k7_slab_ms),
+            ("K7 at the 5.1 slab shape", bound(4 * (2 * 6 * 192000 + 6 * 8),
+                                               6 * 192000 * FILTER_OPS), st["k7_5.1 slab"][0])]:
         print(f"bound {name}: {b_ms:.7f} ms by {by}, kernel {ms:.4f} ms = "
               f"{ms / b_ms:.1f} x bound {on}")
     print(json.dumps({"kernels": kernels}))

@@ -16,6 +16,10 @@ for Hopper (``sm_90a``):
 * K7 ``ops/iir.py:block_iir_stream`` + ``csrc/block_iir.cu``: the
   K-weighting filter with carried state, once per meter push.
 
+K1, K3, K4, K5 and K7 run the tile-scan core ``csrc/iir_tile.cuh`` (host
+side ``ops/iir_tile.py``); K6 walks the same shared-memory tiles without
+the scan.
+
 Each kernel has a plain PyTorch version beside it. Which one runs is
 decided by the input tensor's device alone: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel (built with ``nvcc`` at first

@@ -6,147 +6,143 @@
 // in _run, :67; kernel _iir_kernel :32-54). The TPU kernel walks the blocks
 // in grid order and carries the 4-state in VMEM from zero:
 //   y_j = x_j Tt + s Ot,  s = s A_B^T + x_j Wt.
-// CUDA blocks run in no order, so K7 splits time into steps of L samples
-// and runs the split-time passes of iir_common.cuh, with the semantics of
-// ops/biquad.block_iir (s0 in, s_final out):
+// CUDA blocks run in no order. K7 runs the tile-scan core of iir_tile.cuh
+// in its S0 mode instead, with the semantics of ops/biquad.block_iir (s0
+// in, s_final out), in the modal basis of ops/biquad.py:modal_form (the
+// basis of the JAX package's BlockFilter). One launch reads x once:
 //
-//   stream_zero_state  one thread per (row, full step before the last):
-//                      the step's final state from zero, in matrix form
-//                      (sum_i A^(L-1-i) B x_i, the table built on the host
-//                      in float64);
-//   prefix_pass        one thread per row, from the caller's s0 (A^L built
-//                      on the host in float64);
-//   stream_correct     one thread per (row, step): refilters its step from
-//                      its entry state in the modal realisation, writes y,
-//                      and the thread of the last step writes s_final in
-//                      matrix form, A^r s_entry + sum_i A^(r-1-i) B x_i.
-//
-// The last step may be partial (N % L != 0: 800 frames per 60 Hz tick,
-// 44,100 per 1 s slab); its length r takes A^r from the host. The state
-// is in the modal basis of ops/biquad.py:modal_form, the basis of the JAX
-// package's BlockFilter.
+//   * a persistent CTA of 128 threads takes segments of T = 4,096 samples
+//     of a row (the 60 Hz tick's 800 are one segment; segments of 1,024
+//     were slower there) and copies each through the input's strides into
+//     shared memory (the meter passes each channel as a strided view of
+//     interleaved audio: a sample stride of C, and channel c starts 4c
+//     bytes in, so 16-byte copies do not apply; lanes copy consecutive
+//     samples);
+//   * each thread's zero-state end state over its 32 samples is the matrix
+//     form sum W[k] x_k; the warp scan, the warps in series and the
+//     look-back of 32 segments give each thread's entry state, the row's
+//     first segment entering from the caller's s0 (the records of a
+//     segment -1);
+//   * each thread refilters its 32 samples from its entry state into the
+//     tile, which the CTA stores to y coalesced;
+//   * the thread that holds the row's last sample writes s_final in matrix
+//     form, A^m e + sum_(k<m) A^(m-1-k) B x_k over its m samples from its
+//     entry state e (A^m from the host in float64, the sums from W).
 //
 // Why the matrix form: the carried state of the sample-by-sample float32
 // recurrence drifts. Its slow high-pass mode (|lambda| = 0.995 at 44.1
 // kHz) amplifies each sample's rounding about 200-fold, and its state
 // component is unobserved in y (C ~ 1e-17), so the error shows in s_final
 // only: up to 3e-5 per unit RMS of x against a float64 evaluation at
-// (2, 44100), over the 2e-5 pin; the matrix form stays near 2e-6.
-
-// x is read through strides (row stride rs, sample stride cs) so that the
-// meter's channel view of interleaved audio (stride = channels) needs no
-// copy; y (rows, N) and s_final (rows, 4) are contiguous. The sample loops
-// are plain strided loads, since stream_samples needs contiguous rows of a
-// multiple of 32 samples.
+// (2, 44100), over the 2e-5 pin; the matrix form stays near 2e-6. So
+// s_final never comes from the refilter.
+//
+// Rows of one segment (the tick) need no records: such a launch takes its
+// tickets in grid-stride order and the wrapper passes no record buffer.
+// Longer rows chain through the core's records, which the wrapper resets
+// before each launch.
 //
 // Bound on the H100: at the meter's shapes ((2, 800) per tick, (2, 44100)
-// per slab) it moves 13 KB or 0.7 MB, well under a microsecond at
-// 3.35 TB/s, so its time is the launch latency of its three passes.
+// per slab, (6, 192000) per 5.1 slab) it moves 13 KB, 0.7 MB or 9.2 MB,
+// well under a microsecond at 3.35 TB/s below the 5.1 slab, so its time is
+// the latency of one launch and its chain: a copy, the scan, the
+// refilter of 32 samples and the store.
+
+#include <cstring>
 
 #include "iir_common.cuh"
+#include "iir_tile.cuh"
 
 namespace {
 
-// the step's final state from zero in matrix form, sum_i W[i] x_i with
-// W[i] = A^(L-1-i) B from float64: no rounding carried from sample to sample
-__global__ void __launch_bounds__(THREADS)
-stream_zero_state(const float* __restrict__ x, int64_t rs, int64_t cs,
-                  const float* __restrict__ wtab, int64_t rows, int64_t nsteps,
-                  int64_t L, float* __restrict__ s_final) {
-  const int64_t nfull = nsteps - 1;
-  const int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (t >= rows * nfull) return;
-  const int64_t row = t / nfull;
-  const int64_t j = t - row * nfull;
-  float s[NS] = {0.f, 0.f, 0.f, 0.f};
-  const float* xr = x + row * rs + j * L * cs;
-#pragma unroll 4
-  for (int64_t i = 0; i < L; ++i) {
-    const float xv = __ldg(xr + i * cs);
-#pragma unroll
-    for (int k = 0; k < NS; ++k) s[k] = fmaf(__ldg(wtab + NS * i + k), xv, s[k]);
-  }
-  // s_final rows have nsteps entries, as prefix_pass reads them; the last
-  // one is never written and the state it would give is never read
-#pragma unroll
-  for (int i = 0; i < NS; ++i) s_final[(row * nsteps + j) * NS + i] = s[i];
-}
+constexpr int K7_THREADS = 128;        // T <= 4096
 
-// y over the step by the recurrence from s_entry; the last step's thread
-// also writes s_final = A^len s_entry + sum_i W[L-len+i] x_i (matrix form,
-// A^len = coef_r's A^steps)
-__global__ void __launch_bounds__(THREADS)
-stream_correct(const float* __restrict__ x, int64_t rs, int64_t cs,
-               const float* __restrict__ coef, const float* __restrict__ coef_r,
-               const float* __restrict__ wtab, int64_t rows, int64_t n,
-               int64_t nsteps, int64_t L, const float* __restrict__ s_entry,
-               float* __restrict__ y, float* __restrict__ s_out) {
-  const int64_t t = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (t >= rows * nsteps) return;
-  const int64_t row = t / nsteps;
-  const int64_t j = t - row * nsteps;
-  const int64_t start = j * L;
-  const int64_t len = (n - start < L) ? n - start : L;
-  Filter f;
-  load_filter(coef, f);
-  float s[NS], se[NS];
+__global__ void __launch_bounds__(K7_THREADS)
+k7_tile(const __grid_constant__ TileArgs a) {
+  extern __shared__ float4 tiles[];
+  tile_loop<TILE_LOOKBACK, true>(a, tiles, false, [](int64_t ar) { return ar; },
+                                 [&](const TileScan& ts, float4* tile) {
+    const int tid = threadIdx.x, P = blockDim.x, r = tid + 1;
+    const int64_t g0 = ts.start + (int64_t)TS * tid;
+    const int64_t last = a.n - 1;
+    float* tf = reinterpret_cast<float*>(tile);
+    if (g0 <= last && last < g0 + TS) {              // s_final, before y overwrites x
+      const int m = (int)(last - g0) + 1;
+      V4 s = matvec2(a.AR, ts.entry);
+      for (int j = 0; j < m; ++j) {
+        const float x = tf[4 * tile_slot(r, j >> 2) + (j & 3)];
 #pragma unroll
-  for (int i = 0; i < NS; ++i) s[i] = se[i] = s_entry[t * NS + i];
-  const float* xr = x + row * rs + start * cs;
-  float* yr = y + row * n + start;
-#pragma unroll 4
-  for (int64_t i = 0; i < len; ++i) {
-    const float xv = __ldg(xr + i * cs);
-    yr[i] = output(f, s, xv);
-    advance(f, s, xv);
-  }
-  if (j == nsteps - 1) {
+        for (int i = 0; i < 4; ++i) s.v[i] = fmaf(a.k.W[TS - m + j][i], x, s.v[i]);
+      }
 #pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      float acc = 0.f;
-#pragma unroll
-      for (int k = 0; k < NS; ++k) acc = fmaf(__ldg(coef_r + CO_AL + i * NS + k), se[k], acc);
-      s[i] = acc;
+      for (int i = 0; i < 4; ++i) a.s_out[4 * ts.row + i] = s.v[i];
     }
-    const float* w = wtab + NS * (L - len);
-    for (int64_t i = 0; i < len; ++i) {
-      const float xv = __ldg(xr + i * cs);
+    if (g0 < a.n) {
+      V4 s = ts.entry;
 #pragma unroll
-      for (int k = 0; k < NS; ++k) s[k] = fmaf(__ldg(w + NS * i + k), xv, s[k]);
+      for (int c = 0; c < 8; ++c) {
+        const float4 x4 = tile[tile_slot(r, c)];
+        float4 y4;
+        y4.x = step_filter(a.k, s, x4.x);
+        y4.y = step_filter(a.k, s, x4.y);
+        y4.z = step_filter(a.k, s, x4.z);
+        y4.w = step_filter(a.k, s, x4.w);
+        tile[tile_slot(r, c)] = y4;
+      }
     }
-#pragma unroll
-    for (int i = 0; i < NS; ++i) s_out[row * NS + i] = s[i];
-  }
+    __syncthreads();
+    float* yr = a.y + ts.row * a.n;
+    for (int q = tid; q < TS * P; q += P) {
+      const int64_t g = ts.start + q;
+      if (g >= a.n) break;
+      yr[g] = tf[4 * tile_slot((q >> 5) + 1, (q >> 2) & 7) + (q & 3)];
+    }
+  });
 }
 
 }  // namespace
 
-// x (rows, n) at strides (rs, cs); s0 (rows, 4); coef as iir_common.cuh
-// with A^L, coef_r with A^r for the last step's length r = n - (nsteps -
-// 1) L; wtab (L, 4): A^(L-1-i) B. Scratch s_final0 and s_entry are (rows,
-// ceil(n / L), 4); y (rows, n) and s_out (rows, 4) are written whole.
-// Returns the first CUDA error of the launches, 0 on success.
-extern "C" int ss_block_iir_stream(
-    const float* x, int64_t rs, int64_t cs, const float* s0, const float* coef,
-    const float* coef_r, const float* wtab, int64_t rows, int64_t n, int64_t L,
-    float* s_final0, float* s_entry, float* y, float* s_out, void* stream) {
-  if (rows < 0 || n <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
+// x (rows, n) at strides (rs, cs) in samples; s0 (rows, 4) contiguous;
+// consts: TileConsts for segments of T samples, ar: A^m as its two 2x2
+// blocks, m = (n - 1) % 32 + 1 (both host memory). sync: int32 (4 + 8 *
+// rows * nseg), all bits set, or null when T >= n (no records). y (rows,
+// n) and s_out (rows, 4) are written whole. Returns the first CUDA error,
+// 0 on success.
+extern "C" int ss_block_iir_stream(const float* x, int64_t rs, int64_t cs, const float* s0,
+                                   const float* consts, const float* ar, int64_t rows,
+                                   int64_t n, int64_t T, int* sync, float* y, float* s_out,
+                                   void* stream) {
+  if (rows < 0 || n <= 0 || T % 1024 != 0 || T <= 0 || T > TS * K7_THREADS)
+    return (int)cudaErrorInvalidValue;
+  const int64_t nseg = (n + T - 1) / T;
+  if (nseg > 1 && sync == nullptr) return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
-  const int64_t nsteps = (n + L - 1) / L;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
+  TileArgs a;
+  memset(&a, 0, sizeof(a));
+  memcpy(&a.k, consts, sizeof(TileConsts));
+  memcpy(a.AR, ar, sizeof(a.AR));
+  a.x = x;
+  a.rs = rs;
+  a.cs = cs;
+  a.s0 = s0;
+  a.y = y;
+  a.s_out = s_out;
+  a.sync = nseg > 1 ? sync : nullptr;
+  a.n = n;
+  a.nseg = nseg;
+  a.R = rows;
+  const int P = (int)(T / TS);
+  const size_t smem = tile_smem_bytes(P);
+  int grid = 0;
+  cudaError_t e = persistent_grid(k7_tile, P, smem, rows * nseg, &grid);
+  if (e != cudaSuccess) return (int)e;
+  k7_tile<<<grid, P, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
 
-  if (nsteps > 1) {
-    stream_zero_state<<<blocks_for(rows * (nsteps - 1)), THREADS, 0, st>>>(
-        x, rs, cs, wtab, rows, nsteps, L, s_final0);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  }
-
-  prefix_pass<<<blocks_for(rows), THREADS, 0, st>>>(coef, rows, nsteps,
-                                                    s_final0, s_entry, s0);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-
-  stream_correct<<<blocks_for(rows * nsteps), THREADS, 0, st>>>(
-      x, rs, cs, coef, coef_r, wtab, rows, n, nsteps, L, s_entry, y, s_out);
+// out[6]: registers, static smem, dynamic smem, local (spill) bytes per
+// thread, threads, CTAs per SM of k7_tile at segments of T samples.
+extern "C" int ss_block_iir_stream_attrs(int64_t T, int* out) {
+  kernel_attrs(k7_tile, (int)(T / TS), out);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,10 @@
-// The tile-scan core of the K-weighting energy kernels: K1
-// (iir_chunked.cu) and K3, K4, K5 (iir_rows.cu). Four bodies on one core:
-// K1 sums steps and runs the FIR, K3 writes group sums and runs the FIR,
-// K4 and K5 write group sums (one kernel, k5_tile, at two look-back
-// depths).
+// The tile-scan core of the K-weighting kernels: K1 (iir_chunked.cu), K3,
+// K4, K5 (iir_rows.cu) and the streaming filter K7 (block_iir.cu). Five
+// bodies on one core: K1 sums steps and runs the FIR, K3 writes group sums
+// and runs the FIR, K4 and K5 write group sums (one kernel, k5_tile, at
+// two look-back depths), K7 writes y and the row's end state from a
+// carried state s0 (tile_loop's S0 mode, below). The true peak K6
+// (truepeak_stream.cu) walks the same tiles with no scan (tile_walk).
 //
 // Each runs the 4-state recurrence s <- A s + B x, y = C s + D x in the
 // modal realisation (ops/biquad.py:modal_form; A is two 2x2 blocks, the
@@ -49,11 +51,21 @@
 //     (K1 and K5, whose many rows keep the card busy along short chains).
 //     With a look-back the CTA takes its next ticket once its records are
 //     out (tile_loop).
+//   * S0 mode (K7): a row enters from the caller's state s0, not from zero.
+//     s0 stands as the records of a segment -1, G(-1) = incl(-1) = s0: the
+//     look-back's term for segment -1 is A^(T (j-1)) s0 where t - j R would
+//     be segment -1, and A^(T D) s0 where t - (D+1) R would be. The copy
+//     puts s0 into the tile's halo row (K7 reads no halo), so no wait
+//     involves it. The input is read through its strides, 4 bytes a sample
+//     (the meter's channels are strided views of interleaved audio), and a
+//     launch whose rows are one segment each writes no records and takes
+//     its tickets in grid-stride order, so it needs no record buffer.
 //   * Each thread's entry state is A^(32 lane) (A^(1024 w) s_in + E_w) +
 //     F_(lane-1), the lane power applied as a product of the scan's
 //     matrices picked by the bits of the lane. It then refilters its 32
-//     samples from shared memory and forms w * y^2 (K1 and K3 also run the
-//     polyphase FIR over the same samples and the halo).
+//     samples from shared memory and forms w * y^2 (K7 writes y itself;
+//     K1 and K3 also run the polyphase FIR over the same samples and the
+//     halo).
 //
 // The carry records are two float4s per ticket (G, then incl), set to the
 // bit pattern 0xFFFFFFFF by the wrapper; a record is complete when none of
@@ -68,7 +80,7 @@
 // live in the constant bank, whence FMAs read them without registers, and
 // the wrappers upload nothing.
 //
-// Peaks (K1, K3) are maxima that propagate NaN (max.NaN), as the plain
+// Peaks (K1, K3, K6) are maxima that propagate NaN (max.NaN), as the plain
 // versions' torch max does: a NaN in the valid samples of a row is a NaN
 // peak, not a peak of the other samples.
 
@@ -105,11 +117,11 @@ struct TileConsts {
 
 struct TileArgs {
   TileConsts k;
-  float taps[TILE_MAX_TAPS];           // K1, K3: F phases x KP taps
+  float taps[TILE_MAX_TAPS];           // K1, K3, K6: F phases x KP taps
   float weights[TILE_MAX_CH];          // per channel
   int chans[TILE_MAX_CH];              // K4, K5: the active (nonzero-weight) channels
   const float* x;
-  const int64_t* n_valid;              // per track
+  const int64_t* n_valid;              // per track (K7: none)
   int* sync;                           // [0] ticket counter, records from [4]
   int64_t n;                           // samples per row
   int64_t nseg;                        // segments per row
@@ -119,12 +131,20 @@ struct TileArgs {
   // K1
   int64_t L, h, nsteps;
   float* step_sums;
-  // K1, K3: partial peaks per (row, segment)
+  // K1, K3, K6: partial peaks per (row, segment)
   float* tp_part;
   float* sp_part;
   // K3, K4, K5: group sums per row
   float* zr;
   int64_t group;                       // K3: samples per group, g | 32
+  // K7: x read at x + row * rs + i * cs, rows entering from s0 (rows, 4);
+  // y (rows, n) and the end states s_out (rows, 4); AR = A^m, m the
+  // samples of the row's last sub-span, as its two 2x2 blocks
+  const float* s0;
+  int64_t rs, cs;
+  float* y;
+  float* s_out;
+  float AR[8];
 };
 
 // TileArgs travels by value as the kernel's parameter. CUDA 12.1 and later
@@ -192,6 +212,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int byt
                "r"(bytes));
 }
 
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(bytes));
+}
+
 // Starts the copy of rows first_row .. P of a segment's tile (row 0 is
 // the halo before the segment) as one cp.async group; samples outside
 // [0, n) read as 0.
@@ -205,6 +231,55 @@ __device__ __forceinline__ void issue_tile(float4* tile, const float* __restrict
     cp_async16(tile + tile_slot(r, c), in ? xr + g : xr, in ? 16 : 0);
   }
   asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// issue_tile for CTAs of a fixed P (K6): thread i copies chunk i mod 8 of
+// rows i / 8 + k P / 8, so every swizzled slot and sample offset is a
+// constant step from its first, and a tile wholly inside [0, n) is copied
+// without bounds checks.
+template <int P>
+__device__ __forceinline__ void issue_tile_fixed(float4* tile, const float* __restrict__ xr,
+                                                 int64_t start, int64_t n) {
+  static_assert(P % 64 == 0, "rows i / 8 + k P / 8 keep their swizzle");
+  const int c = threadIdx.x & 7, r0 = threadIdx.x >> 3;
+  const bool whole = start >= TS && start + TS * P <= n;
+#pragma unroll
+  for (int k = 0; k <= 8; ++k) {
+    if (k == 8 && threadIdx.x >= 8) break;         // row P: threads 0 .. 7
+    const int r = r0 + k * (P / 8);
+    const int64_t g = start - TS + (int64_t)TS * r + 4 * c;
+    const bool in = whole || (g >= 0 && g < n);
+    cp_async16(tile + tile_slot(r, c), in ? xr + g : xr, in ? 16 : 0);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// S0 mode (K7): starts the copy of rows 1 .. P of a segment through the
+// input's strides, one sample a cp.async, samples past n read as 0 (lanes
+// take consecutive samples), and, for a segment that looks back to the
+// row's start, the row's s0 into chunk 0 of row 0.
+__device__ __forceinline__ void issue_strided(float4* tile, const TileArgs& a, int64_t row,
+                                              int64_t start, int P, bool with_s0) {
+  float* t = reinterpret_cast<float*>(tile);
+  const float* xr = a.x + row * a.rs;
+  for (int q = threadIdx.x; q < TS * P; q += blockDim.x) {
+    const int64_t g = start + q;
+    const bool in = g < a.n;
+    cp_async4(t + 4 * tile_slot((q >> 5) + 1, (q >> 2) & 7) + (q & 3), in ? xr + g * a.cs : xr,
+              in ? 4 : 0);
+  }
+  if (with_s0 && threadIdx.x < 4)
+    cp_async4(t + 4 * tile_slot(0, 0) + threadIdx.x, a.s0 + 4 * row + threadIdx.x, 4);
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// The CTA's ticket after t (t = blockIdx.x - gridDim.x for its first): the
+// counter's next, or in S0 mode without a record buffer (every row one
+// segment) the grid-stride order.
+template <bool S0>
+__device__ __forceinline__ int64_t next_ticket(const TileArgs& a, int64_t t) {
+  if (S0 && a.sync == nullptr) return t + gridDim.x;
+  return (int64_t)atomicAdd(a.sync, 1) + 1;
 }
 
 __device__ __forceinline__ V4 ld_carry(const int* p) {
@@ -249,6 +324,12 @@ struct TileScan {
   bool skip;                           // the segment starts at or past n_valid
 };
 
+// S0 mode: the row's s0, in chunk 0 of the tile's row 0
+__device__ __forceinline__ V4 tile_s0(const float4* tile) {
+  const float4 q = tile[tile_slot(0, 0)];
+  return V4{{q.x, q.y, q.z, q.w}};
+}
+
 // A^(T m) v for 0 <= m < 2^LB_BITS: the look-back powers picked by the
 // bits of m, lowest first
 __device__ __forceinline__ V4 lb_power(const TileConsts& k, int m, V4 v) {
@@ -260,10 +341,10 @@ __device__ __forceinline__ V4 lb_power(const TileConsts& k, int m, V4 v) {
 
 // The scan and look-back of the module comment, up to each thread's entry
 // state, over a tile already in shared memory. Every thread of the CTA
-// calls it. D: the look-back depth, 0 or TILE_LOOKBACK. next_sh (D > 0):
-// where thread 0 puts the CTA's next ticket, taken once this one's records
-// are out.
-template <int D>
+// calls it. D: the look-back depth, 0 or TILE_LOOKBACK. S0: the row enters
+// from the s0 in the tile's row 0. next_sh (D > 0): where thread 0 puts
+// the CTA's next ticket, taken once this one's records are out.
+template <int D, bool S0 = false>
 __device__ __forceinline__ V4 tile_scan(const TileArgs& a, const float4* tile,
                                         int64_t ticket, int64_t seg, int64_t* next_sh) {
   static_assert(D >= 0 && D <= TILE_LOOKBACK, "the look-back runs on the lanes of warp 0");
@@ -325,6 +406,7 @@ __device__ __forceinline__ V4 tile_scan(const TileArgs& a, const float4* tile,
     V4 s_in = {{0.f, 0.f, 0.f, 0.f}};
     if (D > 0) {
       if (has_g) s_in = lb_power(k, j - 1, wait_carry(gsrc, g));
+      else if (S0 && j <= D && seg == j - 1) s_in = lb_power(k, j - 1, tile_s0(tile));
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) s_in = add(s_in, shfl_down(s_in, o));
     }
@@ -332,9 +414,11 @@ __device__ __forceinline__ V4 tile_scan(const TileArgs& a, const float4* tile,
       if (has_incl) {
         incl = wait_carry(src, incl);
         s_in = D > 0 ? add(lb_power(k, D, incl), s_in) : incl;
+      } else if (S0 && seg == D) {
+        s_in = D > 0 ? add(lb_power(k, D, tile_s0(tile)), s_in) : tile_s0(tile);
       }
       if (seg + D + 1 < a.nseg) st_carry(rec + REC * ticket + 4, add(matvec(k.AT, s_in), e));
-      if (D > 0) *next_sh = (int64_t)atomicAdd(a.sync, 1) + 1;
+      if (D > 0) *next_sh = next_ticket<S0>(a, ticket);
       s_in_sh = s_in;
     }
   }
@@ -363,8 +447,10 @@ __device__ __forceinline__ V4 tile_scan(const TileArgs& a, const float4* tile,
 // record it reads belongs to a smaller ticket, so the waits cannot
 // deadlock.) body(ts, tile) runs once per segment with the tile in shared
 // memory; tiles holds two buffers of 8 * (P + 1) float4. row_of maps an
-// active-row index to a row.
-template <int D, class RowOf, class Body>
+// active-row index to a row. S0 (K7, with D > 0): rows enter from a.s0,
+// the input is read through its strides (issue_strided), every segment is
+// filtered (no n_valid).
+template <int D, bool S0 = false, class RowOf, class Body>
 __device__ __forceinline__ void tile_loop(const TileArgs& a, float4* tiles, bool halo,
                                           RowOf row_of, Body body) {
   __shared__ int64_t ticket_sh[2];
@@ -372,18 +458,20 @@ __device__ __forceinline__ void tile_loop(const TileArgs& a, float4* tiles, bool
   const int64_t ntickets = a.R * a.nseg;
   const int64_t T = (int64_t)TS * P;
   constexpr bool late = D > 0;
+  static_assert(!S0 || late, "S0 mode runs with a look-back");
   auto buf = [&](int b) { return tiles + b * 8 * (P + 1); };
   auto skipped = [&](int64_t t) {
     const int64_t seg = t / a.R;
-    return late && seg * T >= __ldg(a.n_valid + row_of(t - seg * a.R) / a.ch);
+    return !S0 && late && seg * T >= __ldg(a.n_valid + row_of(t - seg * a.R) / a.ch);
   };
   auto start_copy = [&](int64_t t, float4* dst) {
     const int64_t seg = t / a.R;
     const int64_t row = row_of(t - seg * a.R);
-    if (!skipped(t)) issue_tile(dst, a.x + row * a.n, seg * T, a.n, P, halo ? 0 : 1);
+    if (S0) issue_strided(dst, a, row, seg * T, P, seg <= D);
+    else if (!skipped(t)) issue_tile(dst, a.x + row * a.n, seg * T, a.n, P, halo ? 0 : 1);
     else asm volatile("cp.async.commit_group;\n" ::);
   };
-  if (threadIdx.x == 0) ticket_sh[0] = (int64_t)atomicAdd(a.sync, 1) + 1;
+  if (threadIdx.x == 0) ticket_sh[0] = next_ticket<S0>(a, (int64_t)blockIdx.x - gridDim.x);
   __syncthreads();
   int64_t t = ticket_sh[0];
   if (t >= ntickets) return;
@@ -411,7 +499,7 @@ __device__ __forceinline__ void tile_loop(const TileArgs& a, float4* tiles, bool
     ts.start = ts.seg * T;
     ts.skip = skipped(t);
     if (!ts.skip) {
-      ts.entry = tile_scan<D>(a, buf(b), t, ts.seg, &ticket_sh[b ^ 1]);
+      ts.entry = tile_scan<D, S0>(a, buf(b), t, ts.seg, &ticket_sh[b ^ 1]);
     } else {
       if (threadIdx.x == 0) ticket_sh[b ^ 1] = (int64_t)atomicAdd(a.sync, 1) + 1;
       __syncthreads();
@@ -427,24 +515,88 @@ __device__ __forceinline__ void tile_loop(const TileArgs& a, float4* tiles, bool
   }
 }
 
+// K6's walk over independent tickets: no scan, no records. Ticket t is row
+// t / nseg, segment t mod nseg; CTA i takes the contiguous run of
+// ceil(tickets / grid) tickets from i ceil(tickets / grid), so no counter
+// is needed and each CTA streams consecutive segments of a few rows. The
+// copy of the CTA's next segment, with its halo row, is in flight while it
+// works on the current one. A segment that starts at or past its track's
+// n_valid (track row / a.ch) is not copied. body(row, seg, skip, last,
+// tile) runs once per ticket with the tile in shared memory; last: the
+// CTA's next ticket is in another row, or it has none. tiles holds two
+// buffers of 8 * (P + 1) float4. P: the CTA's threads.
+template <int P, class Body>
+__device__ __forceinline__ void tile_walk(const TileArgs& a, float4* tiles, Body body) {
+  const int64_t ntickets = a.R * a.nseg;
+  const int64_t T = (int64_t)TS * P;
+  const int64_t per = (ntickets + gridDim.x - 1) / gridDim.x;
+  const int64_t t0 = blockIdx.x * per;
+  const int64_t tend = t0 + per < ntickets ? t0 + per : ntickets;
+  auto buf = [&](int64_t k) { return tiles + (int)(k & 1) * 8 * (P + 1); };
+  auto skipped = [&](int64_t row, int64_t seg) {
+    return seg * T >= __ldg(a.n_valid + row / a.ch);
+  };
+  // one cp.async group per ticket, empty past the run's end
+  auto start_copy = [&](int64_t t, float4* dst) {
+    const int64_t row = t / a.nseg, seg = t - row * a.nseg;
+    if (t < tend && !skipped(row, seg))
+      issue_tile_fixed<P>(dst, a.x + row * a.n, seg * T, a.n);
+    else
+      asm volatile("cp.async.commit_group;\n" ::);
+  };
+  if (t0 >= tend) return;
+  start_copy(t0, buf(0));
+  for (int64_t k = 0;; ++k) {
+    const int64_t t = t0 + k;
+    start_copy(t + 1, buf(k + 1));
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    __syncthreads();
+    const int64_t row = t / a.nseg, seg = t - row * a.nseg;
+    body(row, seg, skipped(row, seg), t + 1 >= tend || seg + 1 == a.nseg, buf(k));
+    if (t + 1 >= tend) return;
+    __syncthreads();                     // the buffer is refilled next turn
+  }
+}
+
 inline size_t tile_smem_bytes(int P) { return 2 * sizeof(float4) * 8 * (P + 1); }
 
-// As many CTAs as fit on the card at once, at most one per ticket; sets
-// the kernel's dynamic shared memory.
+// As many CTAs as fit on the card at once, at most one per ticket. The
+// first call for a (kernel, device, P, smem) on a host thread sets the
+// kernel's dynamic shared memory and asks the occupancy calculator; later
+// calls reuse the answer (those queries cost microseconds of host time,
+// and K7 launches once per meter push).
 template <class K>
 cudaError_t persistent_grid(K kernel, int P, size_t smem, int64_t ntickets, int* grid) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+  struct Seen {
+    const void* fn;
+    int dev, P;
+    size_t smem;
+    int64_t most;
+  };
+  thread_local Seen seen[8];
+  thread_local int nseen = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, P, smem)) !=
-      cudaSuccess)
-    return e;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int64_t most = (int64_t)per_sm * sms;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  int64_t most = 0;
+  for (int i = 0; i < nseen; ++i)
+    if (seen[i].fn == fn && seen[i].dev == dev && seen[i].P == P && seen[i].smem == smem)
+      most = seen[i].most;
+  if (most == 0) {
+    int sms = 0, per_sm = 0;
+    if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem)) != cudaSuccess)
+      return e;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return e;
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, P, smem)) !=
+        cudaSuccess)
+      return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    most = (int64_t)per_sm * sms;
+    if (nseen < 8) seen[nseen++] = Seen{fn, dev, P, smem, most};
+  }
   *grid = (int)(ntickets < most ? ntickets : most);
   return cudaSuccess;
 }
@@ -483,7 +635,7 @@ __device__ __forceinline__ float step_filter(const TileConsts& k, V4& s, float x
   return y;
 }
 
-// The masked polyphase FIR of K1 and K3 over a thread's 32 samples (tile
+// The masked polyphase FIR of K1, K3 and K6 over a thread's 32 samples (tile
 // row r), phases 1 .. F-1 over taps 0 .. KP-2. Phase 0 of the BS.1770
 // interpolator is a unit impulse (its other taps are under 4e-17), so its
 // outputs are input samples, which the sample peak already takes (tp =
@@ -527,7 +679,7 @@ struct TileFir {
   }
 };
 
-// The CTA's partial peaks (K1, K3): each warp's maxima into pk (before a
+// The CTA's partial peaks (K1, K3, K6): each warp's maxima into pk (before a
 // __syncthreads), then thread 0 writes the CTA's (after it).
 __device__ __forceinline__ void warp_peaks(float tp, float sp, float (*pk)[2]) {
 #pragma unroll

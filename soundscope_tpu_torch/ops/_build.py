@@ -52,12 +52,16 @@ _ENTRIES = (
     # factor, T, lookback, out[6]: K3's (factor 2, 4) or K4's / K5's (0)
     # resources
     ("ss_kweight_energy_rows_attrs", [_INT, _I64, _INT, _P]),
-    # x, n_valid_rows, taps, factor, rows, n, L, tp_part, sp_part, tp, sp,
-    # stream
-    ("ss_true_peak_stream", [_P] * 3 + [_INT, _I64, _I64, _I64] + [_P] * 5),
-    # x, row stride, sample stride, s0, coef, coef_r, wtab, rows, n, L,
-    # s_final0, s_entry, y, s_out, stream
-    ("ss_block_iir_stream", [_P, _I64, _I64, _P, _P, _P, _P, _I64, _I64, _I64] + [_P] * 5),
+    # x, n_valid, rows per length, taps (host), factor, rows, n, tp_part,
+    # sp_part, tp, sp, stream: K6
+    ("ss_true_peak_stream", [_P, _P, _I64, _P, _INT, _I64, _I64] + [_P] * 5),
+    # factor, out[6]: K6's resources
+    ("ss_true_peak_stream_attrs", [_INT, _P]),
+    # x, row stride, sample stride, s0, consts, A^m (host), rows, n, T, sync,
+    # y, s_out, stream: K7
+    ("ss_block_iir_stream", [_P, _I64, _I64, _P, _P, _P, _I64, _I64, _I64] + [_P] * 4),
+    # T, out[6]: K7's resources
+    ("ss_block_iir_stream_attrs", [_I64, _P]),
 )
 
 

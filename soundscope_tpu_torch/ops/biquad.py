@@ -44,8 +44,8 @@ class BlockFilter:
       A_pows (B + 1, n, n): A^0 .. A^B
     Host float64 (the modal realisation the tensors were built from):
       A (n, n), Bv (n,), Cv (n,), D, and A_block = A^B
-    The split-time kernels' float32 constants are cached per (steps,
-    device) by `constants`.
+    `_consts` caches the tile kernels' float32 host constants built from
+    them (ops/iir_tile.py).
     """
 
     Tt: torch.Tensor
@@ -74,30 +74,6 @@ class BlockFilter:
         if steps % self.block == 0:
             return np.linalg.matrix_power(self.A_block, steps // self.block)
         return np.linalg.matrix_power(self.A, steps)
-
-    def constants(self, steps: int, device) -> torch.Tensor:
-        """The kernels' float32 constants on `device`: A (row-major), B, C,
-        D and A^steps (csrc/iir_common.cuh's coef layout). Built once per
-        (steps, device) and uploaded without a host sync."""
-        key = (steps, torch.device(device))
-        if key not in self._consts:
-            self._consts[key] = upload(np.concatenate([
-                self.A.reshape(-1), self.Bv, self.Cv, [self.D],
-                self.power(steps).reshape(-1)]).astype(np.float32), device)
-        return self._consts[key]
-
-    def weight_table(self, steps: int, device) -> torch.Tensor:
-        """(steps, n) float32 on `device`: row i = A^(steps-1-i) B, the
-        matrix form of a step's zero-state end state (K7). Built in
-        float64 once per (steps, device), uploaded without a host sync."""
-        key = ("w", steps, torch.device(device))
-        if key not in self._consts:
-            rows, p = [], self.Bv.astype(np.float64)
-            for _ in range(steps):
-                rows.append(p)
-                p = self.A @ p
-            self._consts[key] = upload(np.stack(rows[::-1]).astype(np.float32), device)
-        return self._consts[key]
 
 
 @functools.lru_cache(maxsize=None)

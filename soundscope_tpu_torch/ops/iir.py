@@ -39,9 +39,14 @@ K7 (csrc/block_iir.cu, replaces `block_iir_pallas`, pallas_call at
 ``pallas_iir.py:67``) filters with carried state: `block_iir_stream(filt,
 x, s0) -> (y, s_final)` computes what ops/biquad.block_iir computes, for
 any N >= 1, with s0 and s_final in the modal basis of the filter. The
-streaming meter (models/meter.py) filters every push through it.
-`block_iir_zero` is the counterpart of `block_iir_pallas`: zero state, y
-only.
+streaming meter (models/meter.py) filters every push through it. On the
+card it is one launch of the tile-scan core in its S0 mode: segments of
+CHAIN_TILE samples read through the input's strides, each row
+entering from s0, y stored coalesced and s_final in matrix form; rows of
+more than one segment chain through a record buffer that is cached per
+(device, stream, rows, segments) and reset on the device before each
+launch. `block_iir_zero` is the counterpart of `block_iir_pallas`: zero
+state, y only.
 
 Each entry launches its kernel on a CUDA tensor and runs its `*_plain`
 version on a CPU tensor; any other device raises. The plain versions are
@@ -49,6 +54,9 @@ the port's blocked filter (ops/biquad.block_iir) and true_peak_masked.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import numpy as np
 import torch
@@ -65,27 +73,10 @@ LAUNCHES = {"K3": 0, "K4": 0, "K5": 0, "K7": 0}
 CHAIN_TILE = 4096
 TP_TILE = 8192
 
-# look-back depth of K3 and K4 (csrc/iir_tile.cuh: TILE_LOOKBACK): a row of
-# N samples is N / (T (LOOKBACK + 1)) hops of its chain, 62 for K3 at 2^24
-# samples, 124 for K4; K5 keeps 0
+# look-back depth of K3, K4 and K7 (csrc/iir_tile.cuh: TILE_LOOKBACK): a
+# row of N samples is N / (T (LOOKBACK + 1)) hops of its chain, 62 for K3
+# at 2^24 samples, 124 for K4; K5 keeps 0
 LOOKBACK = 32
-
-# longest span of K6
-MAX_SPAN = 4096
-
-# K7's step: its prefix walks N / STREAM_STEP steps per row and its
-# correction STREAM_STEP samples per thread, about balanced at the meter's
-# 44,100-sample slabs and 192,000-sample 5.1 slabs
-STREAM_STEP = 256
-
-
-def span_length(n: int, cap: int = MAX_SPAN) -> int:
-    """The largest L = 128 * k <= cap with L | n: the span of K6 (3200 at
-    15 s of 48 kHz, 4096 at a power-of-two bucket)."""
-    if n % 128 or n <= 0:
-        raise ValueError(f"the kernels need N a positive multiple of 128, got {n}")
-    m = n // 128
-    return 128 * max(k for k in range(1, cap // 128 + 1) if m % k == 0)
 
 
 def rows_shape(x: torch.Tensor, weights) -> tuple[int, int, int]:
@@ -168,7 +159,7 @@ def _tile_rows(filt, x, n_valid, weights, group, factor, T, lookback, what):
     b, ch, n, nv = _launchable(filt, x, n_valid, weights, what)
     if group <= 0 or iir_tile.TS % group:
         raise ValueError(f"{what}: group {group} does not divide {iir_tile.TS}")
-    if not iir_tile.modal_blocks_ok(filt.A):
+    if not iir_tile.modal_filter(filt):
         raise ValueError(f"{what} is built for the 4-state K-weighting cascade")
     if ch > iir_tile.MAX_CH:
         raise ValueError(f"{what} takes at most {iir_tile.MAX_CH} channels, got {ch}")
@@ -248,6 +239,10 @@ def kweight_energy_chain(filt: BlockFilter, x: torch.Tensor,
     return z
 
 
+ATTRIBUTE_KEYS = ("registers", "static_smem", "dynamic_smem", "local_bytes",
+                  "threads", "blocks_per_sm")
+
+
 def rows_attributes(factor: int, lookback: int) -> dict:
     """Resources of K3's kernel (factor 2 or 4, at TP_TILE) or of K4's
     (factor 0, lookback LOOKBACK) or K5's (factor 0, lookback 0), at
@@ -263,9 +258,7 @@ def rows_attributes(factor: int, lookback: int) -> dict:
     T = TP_TILE if factor else CHAIN_TILE
     _build.raise_on_error(
         lib, lib.ss_kweight_energy_rows_attrs(factor, T, lookback, out), "rows attributes")
-    keys = ("registers", "static_smem", "dynamic_smem", "local_bytes",
-            "threads", "blocks_per_sm")
-    return dict(zip(keys, out))
+    return dict(zip(ATTRIBUTE_KEYS, out))
 
 
 def block_iir_stream_plain(filt: BlockFilter, x: torch.Tensor, s0: torch.Tensor):
@@ -278,7 +271,9 @@ def block_iir_stream(filt: BlockFilter, x: torch.Tensor, s0: torch.Tensor):
 
     Returns (y (..., N), s_final (..., 4)), as ops/biquad.block_iir. x may
     be a strided view (the meter's channels of interleaved audio): the
-    kernel reads it through its strides. N = 0 launches nothing.
+    kernel reads it through its strides. N = 0 launches nothing. On CUDA
+    a call is one launch, after a reset of its record buffer when a row
+    spans more than one segment, and allocates only y and s_final.
     """
     what = "K7 block_iir_stream"
     if x.device.type == "cpu":
@@ -287,42 +282,63 @@ def block_iir_stream(filt: BlockFilter, x: torch.Tensor, s0: torch.Tensor):
         raise ValueError(f"{what} runs on CPU or CUDA tensors, not {x.device}")
     if x.dtype != torch.float32 or s0.dtype != torch.float32:
         raise TypeError(f"{what}: x and s0 must be float32")
-    if filt.A.shape != (4, 4):
+    if not iir_tile.modal_filter(filt):
         raise ValueError(f"{what} is built for the 4-state K-weighting cascade")
     batch, n = x.shape[:-1], x.shape[-1]
     if tuple(s0.shape) != (*batch, 4) or s0.device != x.device:
         raise ValueError(f"{what}: s0 must be {(*batch, 4)} on {x.device}, "
                          f"got {tuple(s0.shape)} on {s0.device}")
-    rows = int(np.prod(batch)) if batch else 1
+    rows = math.prod(batch)
     if n == 0 or rows == 0:
         return x.new_empty(x.shape), s0.clone()
     x2 = x.reshape(rows, n)
     s0c = s0.reshape(rows, 4).contiguous()
-    L = STREAM_STEP
-    nsteps = -(-n // L)
+    T = CHAIN_TILE
+    nseg = -(-n // T)
     dev = x.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    coef = filt.constants(L, dev)
-    coef_r = filt.constants(n - (nsteps - 1) * L, dev)
-    wtab = filt.weight_table(L, dev)
-    s_final0 = torch.empty((rows, nsteps, 4), **f32)
-    s_entry = torch.empty((rows, nsteps, 4), **f32)
-    y = torch.empty((rows, n), **f32)
-    s_out = torch.empty((rows, 4), **f32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    consts = iir_tile.tile_constants(filt, T)
+    ar = iir_tile.power_blocks(filt, (n - 1) % iir_tile.TS + 1)
+    sync = None
+    if nseg > 1:
+        sync = _stream_records(dev, stream, rows, nseg)
+        sync.fill_(-1)
+    y = torch.empty((rows, n), dtype=torch.float32, device=dev)
+    s_out = torch.empty((rows, 4), dtype=torch.float32, device=dev)
 
     from soundscope_tpu_torch.ops import _build
 
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.ss_block_iir_stream(
-            x2.data_ptr(), x2.stride(0), x2.stride(1), s0c.data_ptr(),
-            coef.data_ptr(), coef_r.data_ptr(), wtab.data_ptr(), rows, n, L,
-            s_final0.data_ptr(), s_entry.data_ptr(),
-            y.data_ptr(), s_out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            x2.data_ptr(), x2.stride(0), x2.stride(1), s0c.data_ptr(), consts.ctypes.data,
+            ar.ctypes.data, rows, n, T, None if sync is None else sync.data_ptr(),
+            y.data_ptr(), s_out.data_ptr(), stream)
     _build.raise_on_error(lib, err, what)
     LAUNCHES["K7"] += 1
     return y.reshape(*batch, n), s_out.reshape(*batch, 4)
+
+
+@functools.lru_cache(maxsize=8)
+def _stream_records(device: torch.device, stream: int, rows: int, nseg: int):
+    """K7's record buffer for one (device, stream, rows, segments): the
+    caller resets it before each launch, in stream order."""
+    return iir_tile.sync_buffer(rows, nseg, device)
+
+
+def stream_attributes() -> dict:
+    """Resources of K7's kernel at segments of CHAIN_TILE samples, as the
+    CUDA runtime reports them (needs a card); the keys of
+    `rows_attributes`."""
+    import ctypes
+
+    from soundscope_tpu_torch.ops import _build
+
+    lib = _build.library()
+    out = (ctypes.c_int * 6)()
+    _build.raise_on_error(lib, lib.ss_block_iir_stream_attrs(CHAIN_TILE, out),
+                          "K7 attributes")
+    return dict(zip(ATTRIBUTE_KEYS, out))
 
 
 def block_iir_zero(filt: BlockFilter, x: torch.Tensor) -> torch.Tensor:

@@ -147,7 +147,7 @@ def kweight_energy_tp_chunked(filt: BlockFilter, x4: torch.Tensor,
     b, ch, n = _check(x4, weights)
     if not x4.is_contiguous():
         raise ValueError("x4 must be contiguous")
-    if filt.A.shape != (4, 4) or not iir_tile.modal_blocks_ok(filt.A):
+    if not iir_tile.modal_filter(filt):
         raise ValueError("K1 is built for the 4-state K-weighting cascade")
     if ch > iir_tile.MAX_CH:
         raise ValueError(f"K1 takes at most {iir_tile.MAX_CH} channels, got {ch}")

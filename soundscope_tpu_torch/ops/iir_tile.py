@@ -1,4 +1,4 @@
-"""Host side of the tile-scan core (csrc/iir_tile.cuh) of K1, K3, K4, K5.
+"""Host side of the tile-scan core (csrc/iir_tile.cuh) of K1, K3-K5 and K7.
 
 The core runs the 4-state K-weighting recurrence over segments of T
 samples a CTA, 32 samples a thread. Its float32 constants are built here
@@ -27,7 +27,10 @@ set, word 0 the ticket counter (tickets count from -1 + 1 = 0), then two
 float4s per (row, segment): the segment's aggregate G and its inclusive
 end state.
 
-`fir_taps` is the true-peak FIR as K1 and K3 read it.
+`power_blocks` is A^m as its two 2x2 blocks: K7 takes a row's end state
+from its last sub-span of m samples.
+
+`fir_taps` is the true-peak FIR as K1, K3 and K6 read it.
 """
 
 from __future__ import annotations
@@ -56,6 +59,14 @@ def modal_blocks_ok(A: np.ndarray) -> bool:
     return A.shape == (4, 4) and float(np.abs(off).max()) <= 1e-9 * float(np.abs(A).max())
 
 
+def modal_filter(filt) -> bool:
+    """modal_blocks_ok for a 4-state filter's A, cached on the filter."""
+    cache = filt._consts
+    if "modal" not in cache:
+        cache["modal"] = filt.A.shape == (4, 4) and modal_blocks_ok(filt.A)
+    return cache["modal"]
+
+
 def _blocks(M: np.ndarray) -> np.ndarray:
     """The two 2x2 diagonal blocks of M, row-major: 8 values."""
     return np.concatenate([M[:2, :2].reshape(-1), M[2:, 2:].reshape(-1)])
@@ -82,11 +93,28 @@ def _tile_constants(a_bytes: bytes, b_bytes: bytes, c_bytes: bytes, d: float,
 
 def tile_constants(filt, T: int) -> np.ndarray:
     """The kernels' TileConsts for the filter's modal realisation and a
-    segment of T samples (float32 from float64, cached)."""
-    return _tile_constants(np.ascontiguousarray(filt.A, np.float64).tobytes(),
-                           np.ascontiguousarray(filt.Bv, np.float64).tobytes(),
-                           np.ascontiguousarray(filt.Cv, np.float64).tobytes(),
-                           float(filt.D), int(T))
+    segment of T samples (float32 from float64, cached, also on the
+    filter's host cache)."""
+    cache = filt._consts
+    key = ("tile", int(T))
+    if key not in cache:
+        cache[key] = _tile_constants(np.ascontiguousarray(filt.A, np.float64).tobytes(),
+                                     np.ascontiguousarray(filt.Bv, np.float64).tobytes(),
+                                     np.ascontiguousarray(filt.Cv, np.float64).tobytes(),
+                                     float(filt.D), int(T))
+    return cache[key]
+
+
+def power_blocks(filt, m: int) -> np.ndarray:
+    """A^m (float64, rounded once to float32) as its two 2x2 diagonal
+    blocks, cached on the filter."""
+    cache = filt._consts
+    key = ("power", int(m))
+    if key not in cache:
+        out = _blocks(np.linalg.matrix_power(np.asarray(filt.A, np.float64), m))
+        cache[key] = out.astype(np.float32)
+        cache[key].setflags(write=False)
+    return cache[key]
 
 
 def unpack(consts: np.ndarray) -> dict:
@@ -110,7 +138,7 @@ def sync_buffer(rows: int, nseg: int, device) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def fir_taps(factor: int) -> np.ndarray:
-    """The true-peak FIR's F x KP taps as K1 and K3 read them (host
+    """The true-peak FIR's F x KP taps as K1, K3 and K6 read them (host
     memory). The kernels skip phase 0 and the last tap of the other phases,
     so this checks that phase 0 is a unit impulse (the sample peak stands
     in for its outputs) and that those taps are zero."""

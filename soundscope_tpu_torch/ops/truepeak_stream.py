@@ -12,58 +12,60 @@ repeated over the remaining rows, as in the reference. At factor 1
 (>= 192 kHz) the reference makes no kernel call and takes a masked max;
 so does `true_peak_stream`, on every device.
 
-On a CUDA tensor `true_peak_stream` launches csrc/truepeak_stream.cu (one
-thread per (row, span of `span_length(N)` samples) with the FIR halo, then
-a deterministic per-row max); on a CPU tensor it runs
-`true_peak_stream_plain` (ops/truepeak.true_peak_masked); any other device
-raises.
+On a CUDA tensor `true_peak_stream` launches csrc/truepeak_stream.cu: each
+(row, segment of TILE samples) an independent ticket of the tile-scan
+core's persistent, double-buffered copy (with the FIR's 32-sample halo),
+each CTA a contiguous run of them; the FIR of K1 and K3 without phase 0
+over each thread's 32 samples, one partial peak per CTA and row, then a
+deterministic per-row max. It reads a track's n_valid per row (no
+expanded copy) and takes the taps by value. On a CPU tensor it runs
+`true_peak_stream_plain` (ops/truepeak.true_peak_masked); any other
+device raises.
 """
 
 from __future__ import annotations
 
-import functools
+import math
 
 import numpy as np
 import torch
 
 from soundscope_tpu_torch.core import constants as C
 from soundscope_tpu_torch.core.device import upload
-from soundscope_tpu_torch.ops.iir import span_length
-from soundscope_tpu_torch.ops.truepeak import _polyphase_taps, true_peak_masked
+from soundscope_tpu_torch.ops import iir_tile
+from soundscope_tpu_torch.ops.truepeak import true_peak_masked
 
 # kernel launches (one per call of true_peak_stream that runs the kernel)
 LAUNCHES = 0
 
+# samples per segment (CTA of 256 threads)
+TILE = 8192
+
 
 def _rows(x: torch.Tensor, n_valid):
-    """x as (rows, N) and n_valid as (rows,) int64 on x's device."""
+    """(x as (rows, N), n_valid as int64 on x's device, the rows each length
+    covers, x's leading shape): one length per `per` consecutive rows (a
+    track's channels); a host value is uploaded without a host sync."""
     if x.dtype != torch.float32:
         raise TypeError(f"x must be float32, got {x.dtype}")
     batch, n = x.shape[:-1], x.shape[-1]
-    rows = int(np.prod(batch)) if batch else 1
-    nva = torch.as_tensor(n_valid, device=x.device).to(torch.int64).reshape(-1)
-    if nva.numel() == 1:
-        nv = nva.expand(rows)
-    elif rows % nva.numel() == 0:
-        nv = nva.repeat_interleave(rows // nva.numel())
+    rows = math.prod(batch)
+    if isinstance(n_valid, torch.Tensor):
+        nv = n_valid.to(x.device, torch.int64).reshape(-1).contiguous()
     else:
-        raise ValueError(f"{nva.numel()} valid lengths for {rows} rows")
-    return x.reshape(rows, n), nv.contiguous(), batch
-
-
-@functools.lru_cache(maxsize=None)
-def _device_taps(factor: int, device: torch.device) -> torch.Tensor:
-    """The F x KP taps on `device`, uploaded once without a host sync."""
-    return upload(np.ascontiguousarray(_polyphase_taps(factor).reshape(-1)), device)
+        nv = upload(np.asarray(n_valid, np.int64).reshape(-1), x.device)
+    if nv.numel() == 0 or rows % nv.numel():
+        raise ValueError(f"{nv.numel()} valid lengths for {rows} rows")
+    return x.reshape(rows, n), nv, rows // nv.numel(), batch
 
 
 def true_peak_stream_plain(x: torch.Tensor, n_valid, rate: int):
     """Plain PyTorch version of K6: true_peak_masked per row. Same
     arguments and results as `true_peak_stream`."""
-    x2, nv, batch = _rows(x, n_valid)
+    x2, nv, per, batch = _rows(x, n_valid)
     if C.true_peak_factor(rate) > 1 and x2.shape[1] % 128:
         raise ValueError(f"N must be a multiple of 128, got {x2.shape[1]}")
-    tp, sp = true_peak_masked(x2, nv[:, None], rate)
+    tp, sp = true_peak_masked(x2, nv.repeat_interleave(per)[:, None], rate)
     return tp.reshape(batch), sp.reshape(batch)
 
 
@@ -77,28 +79,40 @@ def true_peak_stream(x: torch.Tensor, n_valid, rate: int):
         return true_peak_stream_plain(x, n_valid, rate)
     if x.device.type != "cuda":
         raise ValueError(f"K6 runs on CPU or CUDA tensors, not {x.device}")
+    x2, nv, per, batch = _rows(x, n_valid)
+    rows, n = x2.shape
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("K6: x must be contiguous and 16-byte aligned")
-    x2, nv, batch = _rows(x, n_valid)
-    rows, n = x2.shape
-    L = span_length(n)
-    nsteps = n // L
+    if n % 128 or n == 0:
+        raise ValueError(f"K6: N must be a positive multiple of 128, got {n}")
+    taps = iir_tile.fir_taps(factor)          # checks phase 0 and the last taps
     dev = x.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    taps = _device_taps(factor, dev)
-    tp_part = torch.empty((rows, nsteps), **f32)
-    sp_part = torch.empty((rows, nsteps), **f32)
-    tp = torch.empty((rows,), **f32)
-    sp = torch.empty((rows,), **f32)
+    nseg = -(-n // TILE)
+    part = torch.empty((2, rows, nseg), dtype=torch.float32, device=dev)
+    out = torch.empty((2, rows), dtype=torch.float32, device=dev)
 
     from soundscope_tpu_torch.ops import _build
 
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.ss_true_peak_stream(
-            x2.data_ptr(), nv.data_ptr(), taps.data_ptr(), factor, rows, n, L,
-            tp_part.data_ptr(), sp_part.data_ptr(), tp.data_ptr(), sp.data_ptr(),
+            x2.data_ptr(), nv.data_ptr(), per, taps.ctypes.data, factor, rows, n,
+            part[0].data_ptr(), part[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on_error(lib, err, "K6 true_peak_stream")
     LAUNCHES += 1
-    return tp.reshape(batch), sp.reshape(batch)
+    return out[0].reshape(batch), out[1].reshape(batch)
+
+
+def kernel_attributes(factor: int = 4) -> dict:
+    """K6's resources at this factor (2 or 4) as the CUDA runtime reports
+    them (needs a card); the keys of ops/iir.rows_attributes."""
+    import ctypes
+
+    from soundscope_tpu_torch.ops import _build
+    from soundscope_tpu_torch.ops.iir import ATTRIBUTE_KEYS
+
+    lib = _build.library()
+    res = (ctypes.c_int * 6)()
+    _build.raise_on_error(lib, lib.ss_true_peak_stream_attrs(factor, res), "K6 attributes")
+    return dict(zip(ATTRIBUTE_KEYS, res))

@@ -1,8 +1,15 @@
 """K7's plain version against the JAX package: block_iir_zero against the
 Pallas kernel block_iir_pallas in interpret mode, block_iir_stream_plain
-against the XLA block_iir with a carried state, and the kernel's split-time
-algorithm (csrc/block_iir.cu), emulated in float64 with its float32
-constants, against the same.
+against the XLA block_iir with a carried state, and the kernel's algorithm
+(csrc/block_iir.cu: the tile-scan core in its S0 mode), emulated on its
+float32 host constants, against the same and against float64.
+
+`emulate_stream` repeats the kernel's passes: segments of IIR.CHAIN_TILE
+samples, the core's scan and look-back of
+tests/test_torch_iir_tile.py with each row entering from s0 (the records
+of a segment -1), the refilter for y, and s_final in matrix form from the
+entry state of the sub-span that holds the row's last sample (A^m from
+ops/iir_tile.power_blocks, the sums from W).
 
 Pins: y and s_final within 2e-5 abs for unit-variance input
 (tests/test_pallas_iir.py's pin for the Pallas kernel against block_iir).
@@ -17,7 +24,9 @@ import soundscope_tpu.ops.biquad as jbq
 from soundscope_tpu.ops.kweight import kweight_cascade_ss
 from soundscope_tpu.ops.pallas_iir import block_iir_pallas
 from soundscope_tpu_torch.ops import iir as IIR
+from soundscope_tpu_torch.ops import iir_tile
 from soundscope_tpu_torch.ops.biquad import make_block_filter
+from tests.test_torch_iir_tile import _block_matrix, _refilter, _scan
 
 LENGTHS = [1, 7, 127, 333, 800, 2048, 44100]
 
@@ -55,53 +64,65 @@ def test_block_iir_stream_plain_matches_jax_block_iir(n, rate):
     np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=0, atol=2e-5)
 
 
-def _split_time(filt, x, s0, L, dtype=np.float64):
-    """csrc/block_iir.cu's three passes on its float32 constants
-    (ops/biquad.BlockFilter.constants and weight_table), in `dtype`: the
-    matrix-form zero state over the full steps before the last, the prefix
-    from s0 with A^L, the correction by the recurrence, and s_final in
-    matrix form from the last step's entry state with A^r."""
-    coef = filt.constants(L, "cpu").numpy().astype(dtype)
-    A, B, Cv, D = coef[:16].reshape(4, 4), coef[16:20], coef[20:24], coef[24]
-    AL = coef[25:41].reshape(4, 4)
-    W = filt.weight_table(L, "cpu").numpy().astype(dtype)
+def emulate_stream(filt, x, s0, T=None, dtype=np.float64):
+    """(y (rows, n), s_final (rows, 4)) of K7 on x (rows, n) float32 from s0,
+    in `dtype` on the float32 host constants; T: the segment (the kernel's
+    IIR.CHAIN_TILE by default)."""
     rows, n = x.shape
-    nsteps = -(-n // L)
-    r = n - (nsteps - 1) * L
-    Ar = filt.constants(r, "cpu").numpy().astype(dtype)[25:41].reshape(4, 4)
-    xp = np.zeros((rows, nsteps * L), dtype)
+    T = T or IIR.CHAIN_TILE
+    nseg = -(-n // T)
+    xp = np.zeros((rows, nseg * T), dtype)
     xp[:, :n] = x
-    xs = xp.reshape(rows, nsteps, L)
-    s_final0 = np.zeros((rows, nsteps, 4), dtype)
-    for i in range(L):
-        s_final0 = (s_final0 + xs[..., i, None] * W[i]).astype(dtype)
-    s_entry = np.zeros((rows, nsteps, 4), dtype)
-    s = s0.astype(dtype)
-    for j in range(nsteps):
-        s_entry[:, j] = s
-        s = (s @ AL.T + s_final0[:, j]).astype(dtype)
-    y = np.zeros((rows, nsteps, L), dtype)
-    s = s_entry.copy()
-    for i in range(L):
-        y[..., i] = s @ Cv + D * xs[..., i]
-        s = (s @ A.T + xs[..., i, None] * B).astype(dtype)
-    s = (s_entry[:, -1] @ Ar.T).astype(dtype)
-    for i in range(r):
-        s = (s + xs[:, -1, i, None] * W[L - r + i]).astype(dtype)
-    return y.reshape(rows, -1)[:, :n], s
+    xs = xp.reshape(rows, nseg, T // iir_tile.TS, iir_tile.TS)
+    k = {name: np.asarray(v, dtype)
+         for name, v in iir_tile.unpack(iir_tile.tile_constants(filt, T)).items()}
+    entry = _scan(k, xs, T, IIR.LOOKBACK, s0.astype(dtype))
+    y = _refilter(k, xs, entry).reshape(rows, -1)[:, :n]
+    th, m = (n - 1) // iir_tile.TS, (n - 1) % iir_tile.TS + 1
+    AR = _block_matrix(iir_tile.power_blocks(filt, m)).astype(dtype)
+    s = entry.reshape(rows, -1, 4)[:, th] @ AR.T
+    for j in range(m):
+        s = s + xp[:, th * iir_tile.TS + j, None] * k["W"][iir_tile.TS - m + j]
+    return y, s
 
 
-@pytest.mark.parametrize("n", [1, 7, 333, 800, 2048])
-def test_kernel_split_time_algorithm_matches_jax(n):
+# N, rows, T: the lengths in use (a partial last sub-span for all but 800
+# and 2048), one segment (the tick) and many (the 1 s slab's 11), and
+# 44,100 at T = 1,024: 44 segments, past the look-back's 32, so s0 enters
+# through the inclusive state as well (the 5.1 slab's 47 do so on the card)
+STREAM_CASES = [(n, rows, None) for n in (1, 7, 333, 800, 2048, 44100) for rows in (2, 6)]
+STREAM_CASES.append((44100, 2, 1024))
+
+
+@pytest.mark.parametrize("n,rows,T", STREAM_CASES)
+def test_kernel_stream_algorithm_matches_jax(n, rows, T):
     """The kernel's passes and constant layout, with a carried state in the
-    JAX filter's modal basis: the basis of the port's BlockFilter."""
-    x, s0 = _inputs(900 + n, (2, n))
-    jf = jbq.make_block_filter(kweight_cascade_ss(48000), block=128)
+    JAX filter's modal basis (the basis of the port's BlockFilter), against
+    the XLA block_iir and a float64 evaluation of the recurrence."""
+    rate = 44100 if n == 44100 else 48000
+    x, s0 = _inputs(900 + n + rows, (rows, n))
+    jf = jbq.make_block_filter(kweight_cascade_ss(rate), block=128)
     yj, sj = jbq.block_iir(jf, jnp.asarray(x), jnp.asarray(s0))
-    tf = make_block_filter(kweight_cascade_ss(48000), 128)
-    y, s = _split_time(tf, x, s0, IIR.STREAM_STEP)
-    np.testing.assert_allclose(y, np.asarray(yj), rtol=0, atol=2e-5)
-    np.testing.assert_allclose(s, np.asarray(sj), rtol=0, atol=2e-5)
+    tf = make_block_filter(kweight_cascade_ss(rate), 128)
+    if T is not None:
+        assert -(-n // T) > IIR.LOOKBACK + 1
+    y, s = emulate_stream(tf, x, s0, T)
+    rms = float(np.sqrt((x.astype(np.float64) ** 2).mean()))
+    np.testing.assert_allclose(y, np.asarray(yj), rtol=0, atol=2e-5 * rms)
+    np.testing.assert_allclose(s, np.asarray(sj), rtol=0, atol=2e-5 * rms)
+    yt, st = _float64(tf, x, s0)
+    np.testing.assert_allclose(y, yt, rtol=0, atol=2e-5 * rms)
+    np.testing.assert_allclose(s, st, rtol=0, atol=2e-5 * rms)
+
+
+def _float64(filt, x, s0):
+    """The recurrence sample by sample in float64."""
+    s = s0.astype(np.float64)
+    y = np.empty(x.shape)
+    for i in range(x.shape[1]):
+        y[:, i] = s @ filt.Cv + filt.D * x[:, i]
+        s = s @ filt.A.T + x[:, i, None] * filt.Bv
+    return y, s
 
 
 @pytest.mark.parametrize("rate,shape", [(48000, (2, 800)), (44100, (2, 44100))])
@@ -109,23 +130,32 @@ def test_kernel_carried_state_holds_the_pin_against_float64(rate, shape):
     """The kernel's passes in float32 (numpy, no fused multiply-add) against
     a float64 evaluation of the same filter: y and s_final within the pin
     of 2e-5 per unit RMS of x over several seeds with a random carried
-    state. The sample-by-sample float32 recurrence this replaces drifts in
-    the slow high-pass mode, whose state C barely observes: up to 3e-5 per
-    unit RMS in s_final at (2, 44100)."""
+    state. The sample-by-sample float32 recurrence drifts in the slow
+    high-pass mode, whose state C barely observes: up to 3e-5 per unit RMS
+    in s_final at (2, 44100); s_final is therefore taken in matrix form."""
     tf = make_block_filter(kweight_cascade_ss(rate), 128)
     for seed in range(4):
         rng = np.random.default_rng(seed)
         x = (rng.standard_normal(shape) * 0.3).astype(np.float32)
         s0 = (rng.standard_normal((shape[0], 4)) * 0.1).astype(np.float32)
-        s = s0.astype(np.float64)
-        yt = np.empty(shape)
-        for i in range(shape[1]):
-            yt[:, i] = s @ tf.Cv + tf.D * x[:, i]
-            s = s @ tf.A.T + x[:, i, None] * tf.Bv
-        y, sf = _split_time(tf, x, s0, IIR.STREAM_STEP, np.float32)
+        yt, st = _float64(tf, x, s0)
+        y, sf = emulate_stream(tf, x, s0, dtype=np.float32)
+        assert y.dtype == sf.dtype == np.float32
         rms = float(np.sqrt((x.astype(np.float64) ** 2).mean()))
         assert np.abs(y - yt).max() < 2e-5 * rms
-        assert np.abs(sf - s).max() < 2e-5 * rms
+        assert np.abs(sf - st).max() < 2e-5 * rms
+
+
+def test_end_state_constants():
+    """A^m for the last sub-span, m = 1 .. 32, as K7 reads it: two 2x2
+    blocks of the float64 power rounded once, cached on the filter."""
+    tf = make_block_filter(kweight_cascade_ss(44100), 128)
+    for m in (1, 5, 31, 32):
+        want = np.linalg.matrix_power(tf.A, m)
+        got = iir_tile.power_blocks(tf, m)
+        assert got.dtype == np.float32 and not got.flags.writeable
+        np.testing.assert_allclose(_block_matrix(got), want, rtol=0, atol=2e-7)
+        assert iir_tile.power_blocks(tf, m) is got
 
 
 def test_modal_basis_agrees_with_jax():

@@ -109,6 +109,27 @@ def test_k1_k5_wrappers_do_not_sync_the_host(cuda):
         torch.cuda.set_sync_debug_mode("default")
 
 
+def test_k6_k7_wrappers_do_not_sync_the_host(cuda):
+    """K6 (per-track and host-integer n_valid) and K7 (one segment, and
+    rows of many that reset their records) enqueue without waiting."""
+    from soundscope_tpu_torch.ops import _build
+
+    _build.library()
+    n, x, nv, filt = _k1_k5_inputs(cuda)
+    s0 = torch.zeros((2, 4), device=cuda)
+    view = x[0].T.contiguous().reshape(-1).reshape(n, 2).T
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            K6.true_peak_stream(x, nv, 44100)
+            K6.true_peak_stream(x, n, 44100)
+            IIR.block_iir_stream(filt, view[:, :800], s0)
+            IIR.block_iir_stream(filt, view, s0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 @pytest.mark.parametrize("route,rate,b,ch", [("fused", 48000, 2, 2), ("prefix", 192000, 1, 6),
                                              ("chain", 48000, 512, 2)])
 def test_rows_routes_do_not_sync_the_host(cuda, route, rate, b, ch):
@@ -324,7 +345,7 @@ def test_rows_energy_kernels_on_few_long_rows(cuda, kernel, rate, group):
     _energy_close(got[0], want[0], (rate + 5) // 10, group)
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K3", "K4", "K5", "K6"])
+@pytest.mark.parametrize("kernel", ["K1", "K3", "K4", "K5", "K6", "K7"])
 def test_kernels_on_nonfinite_input(cuda, kernel):
     """NaN, +Inf, -Inf and the bit pattern 0xFFFFFFFF in the input: the
     launch returns (a child process with a time limit, so a launch that
@@ -339,7 +360,7 @@ def test_kernels_on_nonfinite_input(cuda, kernel):
 
 
 @pytest.mark.parametrize("rate,n", [(48000, 512 * 20), (96000, 384 * 25),
-                                    (44100, 128 * 73)])
+                                    (44100, 128 * 73), (96000, 3 * 8192 + 1280)])
 def test_k6_kernel_matches_plain(cuda, rate, n):
     x = _noise((3, 2, n), rate).to(cuda)
     nv = torch.tensor([n, n - 333, n // 2], device=cuda)
@@ -347,13 +368,44 @@ def test_k6_kernel_matches_plain(cuda, rate, n):
     got = K6.true_peak_stream(x, nv, rate)
     assert K6.LAUNCHES == before + 1
     want = K6.true_peak_stream_plain(x, nv, rate)
+    again = K6.true_peak_stream(x, nv, rate)
     torch.cuda.synchronize()
     np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
                                rtol=2e-6, atol=1e-7)
     np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].cpu().numpy())
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
     # factor 1 launches nothing
     K6.true_peak_stream(x, nv, 192000)
-    assert K6.LAUNCHES == before + 1
+    assert K6.LAUNCHES == before + 2
+
+
+def test_k6_on_a_library_slice(cuda):
+    """32 stereo tracks at the library scan's length (15 s at 48 kHz:
+    segments of 8,192 with a partial last one), every other track ending
+    3 s early: the segments past its end are skipped."""
+    n = 15 * 48000
+    x = _noise((64, n), 31).to(cuda)
+    x[:, n // 2:] *= 3.0
+    nv = torch.full((32,), n, device=cuda)
+    nv[1::2] -= 48000 * 3 + 333
+    got = K6.true_peak_stream(x, nv, 48000)
+    again = K6.true_peak_stream(x, nv, 48000)
+    want = K6.true_peak_stream_plain(x, nv, 48000)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=2e-6, atol=1e-7)
+    np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].cpu().numpy())
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+def test_k6_k7_attributes(cuda):
+    for factor in (4, 2):
+        a = K6.kernel_attributes(factor)
+        assert a["threads"] == K6.TILE // 32 and a["blocks_per_sm"] >= 1
+        assert a["dynamic_smem"] == 2 * 16 * 8 * (a["threads"] + 1)
+    a = IIR.stream_attributes()
+    assert a["threads"] == IIR.CHAIN_TILE // 32 and a["blocks_per_sm"] >= 1
+    assert a["dynamic_smem"] == 2 * 16 * 8 * (a["threads"] + 1)
 
 
 @pytest.mark.parametrize("route,rate,b,ch,launched", [
@@ -429,14 +481,28 @@ def test_k7_kernel_matches_plain(cuda, shape):
     assert float((yz - yzp).abs().max()) < 2e-5
 
 
-def test_k7_reads_a_strided_view(cuda):
-    inter = torch.randn(2 * 44100, device=cuda)
-    view = inter.reshape(44100, 2).T
-    filt = make_block_filter(kweight_cascade_ss(44100), 128, cuda)
-    s0 = torch.randn((2, 4), device=cuda)
+@pytest.mark.parametrize("rate,shape", [(48000, (2, 800)), (44100, (2, 44100)),
+                                        (192000, (6, 192000))])
+def test_k7_reads_a_strided_view(cuda, rate, shape):
+    """The meter's channels of interleaved audio (sample stride C, channel c
+    4c bytes in) from a random carried state: within the pin of the plain
+    version, the same bits as the contiguous copy and as a second launch."""
+    c, n = shape
+    rng = np.random.default_rng(n + c)
+    inter = torch.from_numpy(rng.standard_normal(c * n).astype(np.float32)).to(cuda)
+    view = inter.reshape(n, c).T
+    s0 = torch.from_numpy((rng.standard_normal((c, 4)) * 0.5).astype(np.float32)).to(cuda)
+    filt = make_block_filter(kweight_cascade_ss(rate), 128, cuda)
     y1, s1 = IIR.block_iir_stream(filt, view, s0)
     y2, s2 = IIR.block_iir_stream(filt, view.contiguous(), s0)
+    y3, s3 = IIR.block_iir_stream(filt, view, s0)
+    yp, sp = IIR.block_iir_stream_plain(filt, view, s0)
+    torch.cuda.synchronize()
     assert torch.equal(y1, y2) and torch.equal(s1, s2)
+    assert torch.equal(y1, y3) and torch.equal(s1, s3)
+    rms = float(inter.pow(2).mean().sqrt())
+    assert float((y1 - yp).abs().max()) < 2e-5 * rms
+    assert float((s1 - sp).abs().max()) < 2e-5 * rms
 
 
 @pytest.mark.parametrize("max_blocks", [1000, 0])

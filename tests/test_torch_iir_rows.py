@@ -162,20 +162,9 @@ def test_mask_is_at_sample_granularity():
         assert (z1[i, v:] == 0).all() and z1[i, v - 1] > 0
 
 
-@pytest.mark.parametrize("n,want", [
-    (720000, 3200), (1 << 24, 4096), (128 * 1129, 128), (128 * 226, 256),
-    (128 * 64, 4096), (128, 128),
-])
-def test_span_length(n, want):
-    L = IIR.span_length(n)
-    assert L == want and n % L == 0 and L % 128 == 0 and L <= IIR.MAX_SPAN
-
-
 def test_inputs_rejected_and_cpu_launches_nothing():
     x, nv, _, tf, w = _inputs(48000, 1)
     xt, nvt = torch.from_numpy(x), torch.from_numpy(nv)
-    with pytest.raises(ValueError):
-        IIR.span_length(1000)
     with pytest.raises(TypeError):
         IIR.kweight_energy_prefix(tf, xt.double(), nvt, w)
     with pytest.raises(ValueError):

@@ -61,10 +61,14 @@ def _block_matrix(lb):
     return M
 
 
-def _scan(k, x, T, D=0):
+def _scan(k, x, T, D=0, s0=None):
     """Entry state of every thread: (rows, nseg, P, 4), x (rows, nseg, P, 32)
-    float64, as tile_scan computes it with a look-back of depth D."""
+    in x's dtype, as tile_scan computes it with a look-back of depth D. s0
+    (rows, 4): the rows enter from s0 (K7, S0 mode), which stands as the
+    records of a segment -1 (G(-1) = incl(-1) = s0): segment s <= D takes
+    A^(T s) s0."""
     rows, nseg, P, _ = x.shape
+    dt = x.dtype
     nw = P // 32
     f = np.einsum("rspk,kj->rspj", x, k["W"])
     F = f.reshape(rows, nseg, nw, 32, 4)
@@ -77,7 +81,7 @@ def _scan(k, x, T, D=0):
     fex[..., 1:, :] = F[..., :-1, :]
     tot = F[..., 31, :]                             # (rows, nseg, nw, 4)
     E = np.zeros_like(tot)
-    e = np.zeros((rows, nseg, 4))
+    e = np.zeros((rows, nseg, 4), dt)
     for w in range(nw):                             # warps in series
         E[:, :, w] = e
         e = e @ k["AW"][1].T + tot[:, :, w]
@@ -91,14 +95,16 @@ def _scan(k, x, T, D=0):
         return M
 
     Pj = np.stack([power(j - 1) for j in range(1, D + 1)]) if D else np.zeros((0, 4, 4))
-    PD = power(D)
-    s_in = np.zeros((rows, nseg, 4))
-    incl = np.zeros((rows, nseg, 4))
+    Pj, PD = Pj.astype(dt), power(D).astype(dt)
+    s_in = np.zeros((rows, nseg, 4), dt)
+    incl = np.zeros((rows, nseg, 4), dt)
     for s in range(nseg):                           # the look-back
         m = min(D, s)
         acc = np.einsum("rmj,mij->ri", e[:, s - m: s][:, ::-1], Pj[:m])
         if s > D:
             acc += incl[:, s - D - 1] @ PD.T
+        elif s0 is not None:                        # segment -1's record
+            acc += s0 @ power(s).astype(dt).T
         s_in[:, s] = acc
         incl[:, s] = acc @ k["AT"].T + e[:, s]
     v = np.einsum("wij,rsj->rswi", k["AW"][:nw], s_in) + E
