@@ -84,6 +84,33 @@ Phases, in order (any failure exits non-zero before the result line):
    add_samples, audio seconds per wall second of each streaming path, and
    the device operations per push (torch.profiler).
 
+13. The TUI in file mode at full size: a 240 s 48 kHz stereo EBU Tech
+   3341 case 1 tone written as 16-bit FLAC (utils/flacenc.py) and as
+   16-bit WAV, both decoded by the native decoders (the NumPy and ffmpeg
+   paths refused) to equal samples; apps/tui.App on the card with a
+   silent sink opens the FLAC (K3 once, the reference's 480,000 waveform
+   points, fft_gain_db = -13 - analyze_array's loudness within 1e-3 LU,
+   decode, waveform and loudness timed apart), then analyzes every
+   playhead report of the first 60 s (2,812, each 2,048 interleaved
+   samples on; K7 once each from the first full 16,384-sample window;
+   short-term -23.0 +- 0.1 LUFS; the mid spectrum's peak at 997 Hz's
+   chart x 56.6 +- 1), ms per frame (median, p99), one 200 x 60 draw
+   every 64 frames (a draw walks all 480,000 points on the host, about
+   half a second), the frame's device time, operations and idle share
+   (torch.profiler, 50 frames), and K7 at the TUI's (2, 8192) strided
+   push against its plain version.
+14. The TUI in microphone mode: the live pipeline (not the snapshot path)
+   on the card, a native ring fed 8 ms of a 700 Hz tone at 44.1 kHz
+   before each of 3,600 ticks; K7 once per 2,048-sample quantum, the
+   tone at its chart x +- 2, ms per tick (median, p99).
+15. The CLI through its decode pool: 32 x 60 s of 48 kHz stereo seeded
+   noise as FLAC and as WAV (written by a process pool); `analyze --json
+   --spectrogram --metrics --profile` in-process on the FLACs (native
+   decoders only): rows complete and equal to the WAV run's bit for bit,
+   spectrograms too, K1 and K2 once (one bucket), the trace naming both;
+   the pool's decode audio-seconds per second, files per second end to
+   end and the decode thread count.
+
 --k7-times DIR prints phase 12's K7 lines for the port in DIR, so that an
 earlier commit unpacked there is timed in the same run on the same card.
 
@@ -919,6 +946,403 @@ def device_profile(fn, iters: int, match: str) -> dict:
             "idle_share": max(0.0, 1.0 - busy / wall_us), "ops": len(spans) / iters}
 
 
+# --------------------------------------------------------- the host surfaces
+
+TUI_RATE, TUI_SECONDS = 48000, 240
+TUI_POSITIONS = 2812            # playhead reports over the first 60 s
+DRAW_EVERY = 64                 # frames between draws (one draw is ~0.5 s)
+CLI_FILES, CLI_SECONDS = 32, 60
+
+
+def zero_launches() -> None:
+    from soundscope_tpu_torch.ops import iir as IIR
+    from soundscope_tpu_torch.ops import iir_chunked as K1
+    from soundscope_tpu_torch.ops import stft_pooled as K2
+    from soundscope_tpu_torch.ops import truepeak_stream as K6
+
+    IIR.LAUNCHES.update(dict.fromkeys(IIR.LAUNCHES, 0))
+    K1.LAUNCHES = K2.LAUNCHES = K6.LAUNCHES = 0
+
+
+def launches_now() -> dict:
+    from soundscope_tpu_torch.ops import iir as IIR
+    from soundscope_tpu_torch.ops import iir_chunked as K1
+    from soundscope_tpu_torch.ops import stft_pooled as K2
+    from soundscope_tpu_torch.ops import truepeak_stream as K6
+
+    return {"K1": K1.LAUNCHES, "K2": K2.LAUNCHES, **IIR.LAUNCHES, "K6": K6.LAUNCHES}
+
+
+def write_pcm16_wav(path: str, ints: np.ndarray, rate: int) -> None:
+    """Planar (C, N) int16 as a 16-bit PCM WAV (the FLAC encoder's grid)."""
+    import struct
+
+    ch, _ = ints.shape
+    pcm = np.ascontiguousarray(ints.T).astype("<i2").tobytes()
+    hdr = (b"RIFF" + struct.pack("<I", 36 + len(pcm)) + b"WAVE" + b"fmt "
+           + struct.pack("<IHHIIHH", 16, 1, ch, rate, rate * ch * 2, ch * 2, 16)
+           + b"data" + struct.pack("<I", len(pcm)))
+    with open(path, "wb") as f:
+        f.write(hdr + pcm)
+
+
+def encode_noise_pair(args) -> float:
+    """One seeded noise file of the CLI corpus as 16-bit FLAC and, the same
+    samples, as 16-bit WAV (a process-pool worker); returns its seconds."""
+    flac, wav, seed, rate, secs = args
+    from soundscope_tpu_torch.utils.flacenc import write_flac
+
+    t0 = time.time()
+    x = np.random.default_rng(seed).standard_normal((2, rate * secs)) * 0.1
+    x[:, x.shape[1] // 2:] *= 3.0
+    ints = np.clip(np.round(x * 32768.0), -32768, 32767).astype(np.int16)
+    write_flac(flac, ints.astype(np.float32) / 32768.0, rate)
+    write_pcm16_wav(wav, ints, rate)
+    return time.time() - t0
+
+
+@contextlib.contextmanager
+def native_decoders_only():
+    """decode_file with its NumPy and ffmpeg paths refused: what decodes
+    went through the port's native library."""
+    from soundscope_tpu_torch.native import decoder
+    from soundscope_tpu_torch.utils import io as sio
+
+    require(decoder.available(), "the port's native decoders did not build")
+
+    def refuse(path, *a, **k):
+        raise SmokeFailure(f"{path} reached a non-native decoder")
+
+    saved = {n: getattr(sio, n) for n in ("decode_wav", "decode_aiff", "decode_ffmpeg")}
+    for n in saved:
+        setattr(sio, n, refuse)
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(sio, n, f)
+
+
+class SilentSink:
+    """The transport-only playback sink: audio goes nowhere."""
+
+    def __init__(self, rate: int):
+        self.rate = rate
+
+    def write(self, interleaved):
+        pass
+
+    def stop(self):
+        pass
+
+
+def pct(xs, q) -> float:
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def chart_x(freq: float) -> float:
+    return (np.log10(freq) - np.log10(20)) / (np.log10(20000) - np.log10(20)) * 100
+
+
+def tui_file_phase(dev, tmp, on) -> dict:
+    """13. the TUI in file mode at full size; returns K7's numbers at the
+    TUI's (2, 8192) push."""
+    import torch
+
+    from soundscope_tpu_torch.apps import player as player_mod
+    from soundscope_tpu_torch.apps import tui as tui_mod
+    from soundscope_tpu_torch.apps.player import AudioPlayer
+    from soundscope_tpu_torch.apps.render import Screen
+    from soundscope_tpu_torch.core.config import MeterConfig
+    from soundscope_tpu_torch.models.engine import analyze_array
+    from soundscope_tpu_torch.ops import iir as IIR
+    from soundscope_tpu_torch.ops.biquad import make_block_filter
+    from soundscope_tpu_torch.ops.kweight import kweight_cascade_ss
+    from soundscope_tpu_torch.utils import io as sio
+    from soundscope_tpu_torch.utils.flacenc import write_flac
+
+    t_phase = time.time()
+    rate, secs = TUI_RATE, TUI_SECONDS
+    t = np.arange(rate * secs) / rate                 # EBU Tech 3341 case 1
+    ints = np.round(10 ** (-23 / 20) * 32768.0 * np.sin(2 * np.pi * 997.0 * t)).astype(np.int16)
+    planar = np.stack([ints, ints]).astype(np.float32) / 32768.0
+    flac, wav = os.path.join(tmp, "ebu3341.flac"), os.path.join(tmp, "ebu3341.wav")
+    t0 = time.time()
+    write_flac(flac, planar, rate)
+    enc_s = time.time() - t0
+    write_pcm16_wav(wav, np.stack([ints, ints]), rate)
+    with native_decoders_only():
+        t0 = time.time()
+        d_flac = sio.decode_file(flac)
+        dec_s = time.time() - t0
+        d_wav = sio.decode_file(wav)
+        require(d_flac.rate == d_wav.rate == rate, "decoded rates")
+        require(np.array_equal(d_flac.samples, d_wav.samples)
+                and np.array_equal(d_flac.samples, planar),
+                "the FLAC and the WAV decode to different samples")
+        print(f"phase tui file: 240 s EBU 3341 case 1 as FLAC ({os.path.getsize(flac)} "
+              f"bytes, encoded in {enc_s:.2f} s) and 16-bit WAV; both through the native "
+              f"decoders, equal samples; FLAC decode {dec_s * 1000:.1f} ms = "
+              f"{secs / dec_s:.1f} audio-s/s {on}")
+
+        # the open: decode (player thread), waveform, integrated loudness
+        spans = {}
+
+        def timed(name, fn):
+            def run(*a, **k):
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                spans[name] = (time.perf_counter() - t0) * 1000
+                return out
+            return run
+
+        app = tui_mod.App(player=AudioPlayer(sink_factory=SilentSink),
+                          config_dir=os.path.join(tmp, "cfg"), device=None)
+        require(app.device.type == "cuda", f"the App computes on {app.device}")
+        saved_wf, saved_dec = tui_mod.Analyzer.get_waveform, player_mod.decode_file
+        tui_mod.Analyzer.get_waveform = staticmethod(timed("waveform", saved_wf))
+        player_mod.decode_file = timed("decode", saved_dec)
+        app.file_analyzer.calculate_integrated_lufs = timed(
+            "integrated", app.file_analyzer.calculate_integrated_lufs)
+        try:
+            zero_launches()
+            t0 = time.perf_counter()
+            app.select_audio_file(flac)
+            open_ms = (time.perf_counter() - t0) * 1000
+            opened = launches_now()
+        finally:
+            tui_mod.Analyzer.get_waveform = staticmethod(saved_wf)
+            player_mod.decode_file = saved_dec
+    try:
+        require(app.audio_file is not None, f"the App did not open the file: {app.error_text}")
+        require(opened["K3"] == 1 and sum(opened.values()) == 1,
+                f"opening a file launched {opened}, not K3 once")
+        want_pts = 2 * int(round(secs * 1000))
+        require(app.file_waveform.shape == (want_pts, 2),
+                f"waveform {app.file_waveform.shape}, the reference's {want_pts} points")
+        ref = analyze_array(planar, MeterConfig(channels=2, rate=rate, max_blocks=0),
+                            device=dev)
+        want_gain = -13.0 - float(ref.integrated_lufs)
+        require(abs(app.fft_gain_db - want_gain) <= 1e-3,
+                f"fft_gain_db {app.fft_gain_db} against -13 - {float(ref.integrated_lufs)}")
+        print(f"phase tui file: open {open_ms:.1f} ms (decode {spans['decode']:.1f}, "
+              f"waveform {spans['waveform']:.1f}, integrated loudness "
+              f"{spans['integrated']:.1f} ms), launches {opened}, {want_pts} waveform "
+              f"points, fft_gain_db {app.fft_gain_db:.4f} (-13 - analyze_array's "
+              f"{float(ref.integrated_lufs):.4f}) {on}")
+
+        # every playhead report of the first 60 s, at the reference cadence
+        frame_ms, draw_ms = [], []
+        positions = [2048 * (k + 1) for k in range(TUI_POSITIONS)]
+        zero_launches()
+        for k, pos in enumerate(positions):
+            t0 = time.perf_counter()
+            app.analyze_audio_file_samples(pos)
+            frame_ms.append((time.perf_counter() - t0) * 1000)
+            if k % DRAW_EVERY == DRAW_EVERY - 1 or k == len(positions) - 1:
+                scr = Screen(200, 60)
+                t0 = time.perf_counter()
+                app.draw(scr)
+                draw_ms.append((time.perf_counter() - t0) * 1000)
+        ran = launches_now()
+        want_k7 = sum(p > 16384 for p in positions)
+        require(ran["K7"] == want_k7 and sum(ran.values()) == want_k7,
+                f"{len(positions)} analysis frames launched {ran}, not K7 {want_k7} times")
+        st = app.lufs[-1]
+        require(abs(st + 23.0) <= 0.1, f"last short-term {st} LUFS, not -23.0")
+        peak_x = float(app.fft_mid[np.argmax(app.fft_mid[:, 1]), 0])
+        require(abs(peak_x - chart_x(997.0)) <= 1.0,
+                f"mid spectrum peak at x {peak_x}, 997 Hz at {chart_x(997.0):.2f}")
+        cur = positions[-1] // 2 // rate
+        require("ebu3341" in scr.text() and f"{cur // 60:02d}:{cur % 60:02d}" in scr.text(),
+                "the drawn frame lacks the title or the playhead time")
+        print(f"phase tui file: {len(positions)} analysis frames (60 s), launches {ran}; "
+              f"ms per frame median {pct(frame_ms, 50):.3f} p99 {pct(frame_ms, 99):.3f} "
+              f"max {max(frame_ms):.3f} (wall, outputs on the host; the loop tick is 8 ms, "
+              f"a report every 21.3 ms); {len(draw_ms)} draws of 200 x 60, ms per draw "
+              f"median {pct(draw_ms, 50):.1f} p99 {pct(draw_ms, 99):.1f}; short-term "
+              f"{st:.4f} LUFS, mid peak x {peak_x:.2f} (997 Hz at {chart_x(997.0):.2f}) {on}")
+
+        more = iter(range(positions[-1] + 2048, 10 ** 9, 2048))
+        prof = device_profile(lambda: app.analyze_audio_file_samples(next(more)), 50,
+                              "k7_tile")
+        if prof:
+            print(f"profile tui frame: device {prof['device_ms'] * 1000:.3f} us per frame in "
+                  f"{prof['ops']:.1f} device operations, K7 {prof['match_ms'] * 1000:.3f} us; "
+                  f"wall {prof['wall_ms']:.4f} ms, idle share {prof['idle_share']:.4f} "
+                  f"(torch.profiler, 50 frames) {on}")
+        else:
+            print("profile tui frame: the trace shows no device time (not measured)")
+
+        # K7 at the TUI's push: the meter's strided view of 16,384
+        # interleaved samples
+        filt = make_block_filter(kweight_cascade_ss(rate), 128, dev)
+        inter = torch.from_numpy(app.audio_file.interleaved()[: 16384].copy()).to(dev)
+        view = inter.reshape(-1, 2).T
+        s0 = torch.zeros((2, 4), device=dev)
+        y, s = IIR.block_iir_stream(filt, view, s0)
+        yp, sp = IIR.block_iir_stream_plain(filt, view, s0)
+        torch.cuda.synchronize()
+        tol = 2e-5 * float(view.pow(2).mean().sqrt())
+        err = max(check_close("K7 tui y", y, yp, 0.0, tol),
+                  check_close("K7 tui s_final", s, sp, 0.0, tol))
+
+        def call():
+            IIR.block_iir_stream(filt, view, s0)
+
+        k7_ms = time_ms(call, 400)
+        plain_ms = time_ms(lambda: IIR.block_iir_stream_plain(filt, view, s0), 100)
+        k7_ms = (k7_ms + time_ms(call, 400)) / 2
+        kprof = device_profile(call, 50, "")
+        dev_us = kprof["device_ms"] * 1000 if kprof else None
+        print(f"timing K7 kernel {k7_ms:.4f} ms plain {plain_ms:.4f} ms (tui shape (2, 8192), "
+              f"strided view; max abs err {err:.3e}); device "
+              + ("not measured" if dev_us is None else f"{dev_us:.3f} us")
+              + f" per call {on}")
+        print(f"phase tui file: {time.time() - t_phase:.1f} s {on}")
+        return {"k7_ms": k7_ms, "plain_ms": plain_ms, "err": err, "device_us": dev_us,
+                "frame_ms": frame_ms, "launches": ran["K7"]}
+    finally:
+        app.handle_key("q")
+
+
+def tui_mic_phase(tmp, on) -> None:
+    """14. the TUI in microphone mode on the live pipeline."""
+    from soundscope_tpu_torch.apps import tui as tui_mod
+    from soundscope_tpu_torch.apps.capture import _pseudo_stereo, make_ring
+    from soundscope_tpu_torch.apps.player import AudioPlayer
+    from soundscope_tpu_torch.native import NativeRing
+
+    t_phase = time.time()
+    app = tui_mod.App(player=AudioPlayer(sink_factory=SilentSink),
+                      config_dir=os.path.join(tmp, "cfg_mic"), device=None)
+    try:
+        app.handle_key("m")
+        require(app.mode == tui_mod.Mode.MICROPHONE and app.live is not None,
+                "microphone mode did not build the live pipeline")
+        require(app.live_ready.wait(timeout=600), "the live pipeline did not warm up")
+        require(app.live_error is None, f"the live pipeline failed: {app.live_error}")
+        require(app.live.state.ring.is_cuda, "the live ring is not on the card")
+        # the synthetic device stops; this phase feeds the ring itself, 8 ms
+        # of a 700 Hz tone before each tick, as the device's callback would
+        app.stream.stop()
+        time.sleep(0.05)
+        rate = 44100
+        app.ring = make_ring(rate * 30)
+        require(isinstance(app.ring, NativeRing), f"the ring is a {type(app.ring).__name__}")
+        app._live_consumed = 0
+        app.live.reset()
+        ticks, tick_ms, pushed, fed = 3600, [], [], 0
+        zero_launches()
+        for k in range(ticks):
+            n = round((k + 1) * rate * 0.008) - round(k * rate * 0.008)
+            i = np.arange(fed, fed + n)
+            fed += n
+            app.ring.push(_pseudo_stereo(
+                (0.4 * np.sin(2 * np.pi * 700.0 * i / rate)).astype(np.float32)))
+            before = app._live_consumed
+            t0 = time.perf_counter()
+            app.analyze_microphone_input()
+            tick_ms.append((time.perf_counter() - t0) * 1000)
+            if app._live_consumed != before:
+                pushed.append(tick_ms[-1])
+        ran = launches_now()
+        quanta = app._live_consumed // app._live_quantum
+        require(ran["K7"] == quanta and sum(ran.values()) == quanta,
+                f"{quanta} quanta pushed, launches {ran}")
+        peak_x = float(app.fft_mid[np.argmax(app.fft_mid[:, 1]), 0])
+        require(abs(peak_x - chart_x(700.0)) <= 2.0,
+                f"mic spectrum peak at x {peak_x}, 700 Hz at {chart_x(700.0):.2f}")
+        print(f"phase tui mic: {ticks} ticks ({fed / rate:.2f} s of audio), {quanta} quanta "
+              f"of 2,048, launches {ran}; ms per tick median {pct(tick_ms, 50):.3f} p99 "
+              f"{pct(tick_ms, 99):.3f} max {max(tick_ms):.3f}; ticks that pushed and framed "
+              f"({len(pushed)}) median {pct(pushed, 50):.3f} p99 {pct(pushed, 99):.3f} (the loop "
+              f"tick 8 ms, the display period 16.7 ms); tone at x {peak_x:.2f} (700 Hz at "
+              f"{chart_x(700.0):.2f}); {time.time() - t_phase:.1f} s {on}")
+    finally:
+        app.handle_key("q")
+
+
+def cli_pool_phase(tmp, on) -> None:
+    """15. the CLI through the decode pool on a FLAC corpus."""
+    import multiprocessing
+    from concurrent.futures import ThreadPoolExecutor
+
+    from soundscope_tpu_torch.apps import cli
+    from soundscope_tpu_torch.utils import io as sio
+    from soundscope_tpu_torch.utils.metrics import GLOBAL as RT
+
+    t_phase = time.time()
+    rate, secs = 48000, CLI_SECONDS
+    flacs = [os.path.join(tmp, f"n{i:02d}.flac") for i in range(CLI_FILES)]
+    wavs = [f[:-5] + ".wav" for f in flacs]
+    jobs = [(f, w, SEED + 100 + i, rate, secs) for i, (f, w) in enumerate(zip(flacs, wavs))]
+    t0 = time.time()
+    with multiprocessing.get_context("spawn").Pool(min(os.cpu_count() or 4, 8)) as pool:
+        enc = pool.map(encode_noise_pair, jobs)
+    print(f"phase cli pool: {CLI_FILES} x {secs} s of 48 kHz stereo noise as FLAC and WAV in "
+          f"{time.time() - t0:.1f} s ({sum(enc):.1f} s of encoding) {on}")
+    threads = cli._decode_workers(CLI_FILES)
+    audio_s = CLI_FILES * secs
+    with native_decoders_only():
+        t0 = time.time()
+        with ThreadPoolExecutor(threads) as ex:
+            decoded = list(ex.map(sio.decode_file, flacs))
+        pool_s = time.time() - t0
+        require(all(d.samples.shape == (2, rate * secs) for d in decoded), "decoded shapes")
+        del decoded
+        spec, prof = os.path.join(tmp, "spec"), os.path.join(tmp, "prof")
+        runs = {}
+        for name, files, extra in [("flac", flacs, ["--metrics", "--profile", prof]),
+                                   ("wav", wavs, [])]:
+            RT.reset()
+            zero_launches()
+            out, err = io.StringIO(), io.StringIO()
+            t0 = time.time()
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                rc = cli.main(["analyze", *files, "--json", "--spectrogram",
+                               os.path.join(spec, name), *extra])
+            wall = time.time() - t0
+            rows = json.loads(out.getvalue())
+            ran = launches_now()
+            require(rc == 0 and [r["file"] for r in rows] == files,
+                    f"cli {name}: rc {rc}, {len(rows)} rows")
+            for r in rows:
+                for k in ("integrated_lufs", "lra_lu", "true_peak", "true_peak_dbtp",
+                          "sample_peak", "spectrogram"):
+                    require(r.get(k) is not None, f"cli {name} row {r['file']} lacks {k}")
+            require(ran["K1"] == 1 and ran["K2"] == 1 and sum(ran.values()) == 2,
+                    f"cli {name}: one bucket launched {ran}, not K1 and K2 once")
+            runs[name] = (rows, wall, err.getvalue(), ran)
+    rows_f, wall_f, err_f, ran_f = runs["flac"]
+    for a, b in zip(rows_f, runs["wav"][0]):
+        for k in a:
+            if k not in ("file", "spectrogram"):
+                require(a[k] == b[k], f"cli: {a['file']} {k} {a[k]} != the WAV's {b[k]}")
+        sa, sb = np.load(a["spectrogram"]), np.load(b["spectrogram"])
+        require(np.array_equal(sa["mid_db"], sb["mid_db"])
+                and np.array_equal(sa["side_db"], sb["side_db"]),
+                f"cli: {a['file']} spectrogram differs from the WAV's")
+    rep = json.loads(err_f.strip().splitlines()[-1])["metrics"]
+    traces = [os.path.join(prof, f) for f in os.listdir(prof) if f.endswith(".json")]
+    require(len(traces) == 1, f"profile directory holds {os.listdir(prof)}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    gpu = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    for kernel in ("k1_tile", "k2_stft_pooled"):
+        require(any(kernel in e.get("name", "") for e in gpu),
+                f"the trace names no {kernel}: {len(events)} events, {len(gpu)} on the "
+                f"device: {sorted({e.get('name', '')[:32] for e in gpu})[:12]}")
+    print(f"phase cli pool: {CLI_FILES} FLAC files, rows equal to the WAV run's bit for "
+          f"bit, launches {ran_f}; {threads} decode threads: the pool decodes "
+          f"{audio_s / pool_s:.1f} audio-s/s ({pool_s:.3f} s for {audio_s} s), per decode "
+          f"thread {rep['decode']['rt_factor']} audio-s/s; analyze end to end "
+          f"{CLI_FILES / wall_f:.2f} files/s ({wall_f:.3f} s with --profile; the WAV run "
+          f"{runs['wav'][1]:.3f} s = {CLI_FILES / runs['wav'][1]:.2f} files/s); metrics "
+          f"{json.dumps(rep)}; the trace names K1 and K2; {time.time() - t_phase:.1f} s {on}")
+
+
 def k7_times_of(root: str) -> int:
     """--k7-times ROOT: k7_timings for the port under ROOT (a checkout, such
     as an unpacked earlier commit, to compare in one run on one card)."""
@@ -978,7 +1402,7 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
     # 1. build
-    t0 = time.time()
+    t_start = t0 = time.time()
     _build.library()
     print(f"phase build: {time.time() - t0:.2f} s (nvcc {_build.nvcc()})")
 
@@ -1407,6 +1831,14 @@ def main() -> int:
     st = streaming_timings(dev, gen, on)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {on}")
 
+    # 13.-15. the host surfaces: the TUI in file and microphone mode, the
+    # CLI through its decode pool
+    with tempfile.TemporaryDirectory() as tmp:
+        tui = tui_file_phase(dev, tmp, on)
+        tui_mic_phase(tmp, on)
+        cli_pool_phase(tmp, on)
+    print(f"chip_smoke: phases 1-15 in {time.time() - t_start:.1f} s {on}")
+
     # bounds at the timed shapes (bytes: inputs read once, outputs written once)
     n_bench_all = TRACKS * 2 * n_bench
     nw = n_bench // 2048 - 7
@@ -1463,7 +1895,9 @@ def main() -> int:
             ("K7 at the slab shape", bound(4 * (2 * 2 * 44100 + 2 * 8), 2 * 44100 * FILTER_OPS),
              k7_slab_ms),
             ("K7 at the 5.1 slab shape", bound(4 * (2 * 6 * 192000 + 6 * 8),
-                                               6 * 192000 * FILTER_OPS), st["k7_5.1 slab"][0])]:
+                                               6 * 192000 * FILTER_OPS), st["k7_5.1 slab"][0]),
+            ("K7 at the TUI shape (2, 8192)", bound(4 * (2 * 2 * 8192 + 2 * 8),
+                                                   2 * 8192 * FILTER_OPS), tui["k7_ms"])]:
         print(f"bound {name}: {b_ms:.7f} ms by {by}, kernel {ms:.4f} ms = "
               f"{ms / b_ms:.1f} x bound {on}")
     print(json.dumps({"kernels": kernels}))

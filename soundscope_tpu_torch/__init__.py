@@ -34,9 +34,20 @@ Layout mirrors the reference package:
   models/  the whole-file engine (engine.py), the streaming meter
            (meter.py), the ``Analyzer`` facade (analyzer.py) and the live
            mic/player pipeline (live.py)
-  apps/    the batch CLI (``analyze`` / ``scan``)
-  utils/   host audio decoders (io.py), checkpoints (checkpoint.py), and
-           conversion of the JAX package's parameters and states (params.py)
+  apps/    the CLI (cli.py: ``analyze`` / ``scan`` through a pipelined
+           decode pool, ``tui``, ``themes``; a bare path opens the TUI),
+           the curses TUI (tui.py) on ``Analyzer`` and ``LiveAnalyzer``,
+           its screen and charts (render.py), themes (themes.py), the
+           player and its transport (player.py), capture (capture.py) and
+           the PulseAudio binding (pulse.py)
+  native/  the C++ decoders (WAV, FLAC, MPEG audio, ALAC, Vorbis, AAC, the
+           libav codec bridge) and the capture ring, bound with ctypes;
+           built with the host's C++ compiler at first use
+  utils/   host audio decode dispatch (io.py), the FLAC encoder
+           (flacenc.py), test signals (synth.py), RT-factor counters and
+           torch.profiler traces (metrics.py), checkpoints (checkpoint.py),
+           and conversion of the JAX package's parameters and states
+           (params.py)
   csrc/    CUDA sources
 
 This package never imports ``jax``, ``flax`` or ``soundscope_tpu``.

@@ -1,33 +1,52 @@
-"""Batch CLI host of the PyTorch port.
+"""CLI host of the PyTorch port.
 
+The reference binary is `soundscope [OPTIONS] [FILE]` and opens straight
+into the TUI (src/main.rs:21-30); a bare path maps to `tui PATH`, no
+arguments to `tui`. The batch commands analyze whole files on the card:
+
+    python -m soundscope_tpu_torch.apps.cli [FILE]            # the TUI
+    python -m soundscope_tpu_torch.apps.cli tui [FILE] [--device cuda|cpu] [--metrics]
     python -m soundscope_tpu_torch.apps.cli analyze FILE... [--json]
-        [--spectrogram DIR] [--timeline DIR] [--device cuda|cpu]
-    python -m soundscope_tpu_torch.apps.cli scan DIR [--json] [--device cuda|cpu]
+        [--spectrogram DIR] [--timeline DIR] [--decode-threads N]
+        [--metrics] [--profile DIR] [--device cuda|cpu]
+    python -m soundscope_tpu_torch.apps.cli scan DIR [--json] [...]
+    python -m soundscope_tpu_torch.apps.cli themes
 
-Files are decoded on the host, grouped into (channels, rate, padded
-length) buckets, and each bucket is analyzed as one batch in the frames
-view (b, ch, N/128, 128) on `--device`: the CUDA device (the default;
-the command fails when there is none) or the CPU. On CUDA the bucket runs
-through K1 and, with --spectrogram above 40 kHz, K2.
-
-Decoding uses the port's own NumPy WAV and AIFF readers (utils/io.py);
-other formats fall to the ffmpeg command line where one is installed.
+A thread pool decodes files ahead (the native decoders drop the GIL) while
+the main thread takes them in input order, groups them into (channels,
+rate, padded length) buckets and analyzes each bucket as one batch in the
+frames view (b, ch, N/128, 128) on `--device`: the CUDA device (the
+default; the command fails when there is none) or the CPU. On CUDA a
+bucket runs through K1 and, with --spectrogram above 40 kHz, one K2.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import json
 import os
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 from soundscope_tpu_torch import __version__
+from soundscope_tpu_torch.core import constants as C
 from soundscope_tpu_torch.core.device import default_device
 from soundscope_tpu_torch.utils import io as sio
+from soundscope_tpu_torch.utils.metrics import GLOBAL as RT
 
 FLUSH_AT = 64
+
+
+def _decode_workers(n_paths: int, threads: int = 0) -> int:
+    """Decode thread count: `threads` when positive, else one per core
+    (at most 16), never more than the files."""
+    if threads > 0:
+        return min(threads, max(n_paths, 1))
+    return max(1, min(os.cpu_count() or 4, 16, n_paths))
 
 
 def _export_path(dir_: str, title: str, suffix: str, used: dict) -> str:
@@ -36,6 +55,29 @@ def _export_path(dir_: str, title: str, suffix: str, used: dict) -> str:
     used[(dir_, title, suffix)] = n
     name = title if n == 1 else f"{title}-{n}"
     return os.path.join(dir_, name + suffix)
+
+
+def _bucket_spectrograms(x4, items, rate: int) -> list:
+    """The pooled mid/side spectrogram of every file of a bucket, as
+    ops/stft.spectrogram gives it for each file alone: above 40 kHz one K2
+    over the bucket's frames (a file's first N // 2048 - 7 windows read
+    only its own samples), below it the plain path per file."""
+    from soundscope_tpu_torch.ops.stft import HOP, _pooled_gain_plan, spectrogram
+    from soundscope_tpu_torch.ops.stft_pooled import rate_supported, stft_pooled_frames
+
+    if not rate_supported(rate):
+        return [spectrogram(d.samples, rate, x4.device) for _, d in items]
+    lr = x4[:, :2] if x4.shape[1] >= 2 else x4[:, [0, 0]]
+    mid, side = stft_pooled_frames(lr.contiguous(), rate)
+    mid, side = mid.cpu().numpy(), side.cpu().numpy()
+    _, _, centers = _pooled_gain_plan(C.DEFAULT_FFT_SIZE, rate, 128)
+    out = []
+    for i, (_, d) in enumerate(items):
+        nw = max(d.samples.shape[1] // HOP - C.DEFAULT_FFT_SIZE // HOP + 1, 0)
+        out.append({"chart_x": np.asarray(centers), "mid_db": mid[i, :nw],
+                    "side_db": side[i, :nw], "hop": HOP,
+                    "win": C.DEFAULT_FFT_SIZE, "rate": rate})
+    return out
 
 
 def _analyze_bucket(key, items, results, dev, spectrogram_dir=None,
@@ -53,12 +95,17 @@ def _analyze_bucket(key, items, results, dev, spectrogram_dir=None,
     for i, (_, d) in enumerate(items):
         xs[i, :, : d.samples.shape[1]] = d.samples
         nv[i] = d.samples.shape[1]
-    x4 = torch.from_numpy(xs).to(dev).reshape(len(items), ch, npad // 128, 128)
-    res = analyze_batch_native(cfg, x4, torch.from_numpy(nv).to(dev))
-    tp = res.true_peak.cpu().numpy()
-    sp = res.sample_peak.cpu().numpy()
-    integ = res.integrated_lufs.cpu().numpy()
-    lra = res.lra.cpu().numpy()
+    with RT.measure("analyze", float(nv.sum()) / rate):
+        x4 = torch.from_numpy(xs).to(dev).reshape(len(items), ch, npad // 128, 128)
+        res = analyze_batch_native(cfg, x4, torch.from_numpy(nv).to(dev))
+        tp = res.true_peak.cpu().numpy()
+        sp = res.sample_peak.cpu().numpy()
+        integ = res.integrated_lufs.cpu().numpy()
+        lra = res.lra.cpu().numpy()
+    specs = None
+    if spectrogram_dir is not None:
+        with RT.measure("spectrogram", float(nv.sum()) / rate):
+            specs = _bucket_spectrograms(x4, items, rate)
     for i, (p, d) in enumerate(items):
         with np.errstate(divide="ignore"):
             tp_db = 20.0 * np.log10(tp[i].max())
@@ -78,11 +125,9 @@ def _analyze_bucket(key, items, results, dev, spectrogram_dir=None,
             "true_peak_dbtp": round(tp_db, 2) if tp_db is not None else None,
             "sample_peak": [round(float(v), 4) for v in sp[i]],
         }
-        if spectrogram_dir is not None:
-            from soundscope_tpu_torch.ops.stft import spectrogram
-
+        if specs is not None:
             out = _export_path(spectrogram_dir, d.title, ".spec.npz", used)
-            np.savez_compressed(out, **spectrogram(d.samples, d.rate, dev))
+            np.savez_compressed(out, **specs[i])
             row["spectrogram"] = out
         if timeline_dir is not None:
             nm = int(res.n_momentary[i])
@@ -100,10 +145,12 @@ def _analyze_bucket(key, items, results, dev, spectrogram_dir=None,
 
 
 def _analyze_paths(paths: list[str], dev, spectrogram_dir: str | None = None,
-                   timeline_dir: str | None = None) -> list[dict]:
+                   timeline_dir: str | None = None, threads: int = 0) -> list[dict]:
     from soundscope_tpu_torch.models.engine import pad_bucket
 
     results: list[dict] = []
+    # buckets flush at FLUSH_AT files, so peak memory is the decode window
+    # plus one bucket of decoded audio, not the whole library
     buckets: dict[tuple, list] = {}
     used_names: dict = {}
 
@@ -111,16 +158,44 @@ def _analyze_paths(paths: list[str], dev, spectrogram_dir: str | None = None,
         _analyze_bucket(key, buckets.pop(key), results, dev, spectrogram_dir,
                         timeline_dir, used_names)
 
-    for p in paths:
+    def decode_one(p):
         try:
-            d = sio.decode_file(p)
+            with RT.measure("decode", 0.0):
+                d = sio.decode_file(p)
+            RT.add_audio("decode", d.duration)
+            return d
         except (sio.DecodeError, OSError) as e:
-            results.append({"file": p, "error": str(e)})
-            continue
-        key = (d.channels, d.rate, pad_bucket(d.samples.shape[1]))
-        buckets.setdefault(key, []).append((p, d))
-        if len(buckets[key]) >= FLUSH_AT:
-            flush(key)
+            return e
+
+    # A thread pool decodes ahead while this thread takes the futures in
+    # submission order (a deterministic bucket composition) and sends full
+    # buckets to the device: bucket k's analysis overlaps the decode of
+    # bucket k+1.
+    workers = _decode_workers(len(paths), threads)
+    window = max(2 * FLUSH_AT, 4 * workers)
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        pending = collections.deque()
+        it = iter(paths)
+
+        def top_up():
+            while len(pending) < window:
+                p = next(it, None)
+                if p is None:
+                    return
+                pending.append((p, ex.submit(decode_one, p)))
+
+        top_up()
+        while pending:
+            p, fut = pending.popleft()
+            d = fut.result()
+            top_up()
+            if isinstance(d, Exception):
+                results.append({"file": p, "error": str(d)})
+                continue
+            key = (d.channels, d.rate, pad_bucket(d.samples.shape[1]))
+            buckets.setdefault(key, []).append((p, d))
+            if len(buckets[key]) >= FLUSH_AT:
+                flush(key)
     for key in list(buckets):
         flush(key)
     order = {p: i for i, p in enumerate(paths)}
@@ -152,21 +227,33 @@ def cmd_analyze(args) -> int:
     tl_dir = getattr(args, "timeline", None)
     if tl_dir:
         os.makedirs(tl_dir, exist_ok=True)
-    rows = _analyze_paths(args.files, dev, spectrogram_dir=spec_dir,
-                          timeline_dir=tl_dir)
+    prof_dir = getattr(args, "profile", None)
+    if prof_dir:
+        from soundscope_tpu_torch.utils.metrics import profile_trace
+
+        prof_ctx = profile_trace(prof_dir)
+    else:
+        prof_ctx = contextlib.nullcontext()
+    with prof_ctx as trace:
+        rows = _analyze_paths(args.files, dev, spectrogram_dir=spec_dir,
+                              timeline_dir=tl_dir, threads=args.decode_threads)
+    if prof_dir:
+        print(f"trace written to {trace}", file=sys.stderr)
     if args.json:
         print(json.dumps(rows, indent=None if args.compact else 2))
     else:
         _print_table(rows)
+    if args.metrics:
+        # per-op wall/audio/RT-factor report on stderr (keeps stdout parseable)
+        print(json.dumps({"metrics": RT.report()}), file=sys.stderr)
     return 1 if any("error" in r for r in rows) else 0
 
 
 def cmd_scan(args) -> int:
-    exts = sio.AUDIO_EXTENSIONS
     paths = []
     for root, _, names in os.walk(args.dir):
         for nm in sorted(names):
-            if nm.rsplit(".", 1)[-1].lower() in exts:
+            if nm.rsplit(".", 1)[-1].lower() in sio.AUDIO_EXTENSIONS:
                 paths.append(os.path.join(root, nm))
     if not paths:
         print("no audio files found", file=sys.stderr)
@@ -175,15 +262,66 @@ def cmd_scan(args) -> int:
     return cmd_analyze(args)
 
 
+def cmd_themes(_args) -> int:
+    from soundscope_tpu_torch.apps.themes import list_themes
+
+    for name in list_themes():
+        print(name)
+    return 0
+
+
+def cmd_tui(args) -> int:
+    from soundscope_tpu_torch.apps.tui import run_tui
+
+    # before curses takes the terminal: without a card (and without
+    # --device cpu) this raises
+    dev = default_device(args.device)
+    return run_tui(args.file, device=dev, show_metrics=args.metrics)
+
+
+_SUBCOMMANDS = ("analyze", "scan", "tui", "themes")
+
+
+def _normalize_argv(argv: list[str]) -> list[str]:
+    """Reference surface: `soundscope [OPTIONS] [FILE]` opens the TUI —
+    with FILE, on that file; with no arguments, empty (src/main.rs:21-30).
+    A bare path maps to `tui PATH`; no arguments map to `tui`."""
+    if not argv:
+        return ["tui"]
+    if not argv[0].startswith("-") and argv[0] not in _SUBCOMMANDS:
+        return ["tui"] + list(argv)
+    return list(argv)
+
+
 _DECODE_NOTE = (
-    "Decoding: WAV and AIFF are read by the port's NumPy decoders; other "
-    "formats need an ffmpeg binary on PATH.")
+    "Decoding: the port's native decoders (WAV, FLAC, MPEG audio, ALAC, Ogg "
+    "Vorbis, AAC, and the libav codec bridge where it was built), NumPy for "
+    "AIFF, and an ffmpeg binary on PATH for the rest.")
+
+
+def _batch_args(p, spectrogram: bool) -> None:
+    p.add_argument("--json", action="store_true")
+    p.add_argument("--compact", action="store_true")
+    if spectrogram:
+        p.add_argument("--spectrogram", metavar="DIR",
+                       help="also write pooled mid/side spectrograms (.spec.npz)")
+    p.add_argument("--timeline", metavar="DIR",
+                   help="also write momentary/short-term timelines (.loudness.npz)")
+    p.add_argument("--decode-threads", type=int, default=0, metavar="N",
+                   help="decode threads (default: one per core, at most 16)")
+    p.add_argument("--metrics", action="store_true",
+                   help="print per-op RT-factor metrics JSON on stderr")
+    p.add_argument("--profile", metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the run to DIR")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="where to compute (default: cuda)")
 
 
 def main(argv=None) -> int:
+    argv = _normalize_argv(sys.argv[1:] if argv is None else argv)
     ap = argparse.ArgumentParser(
         prog="soundscope-tpu-torch",
-        description="Batch loudness and spectrogram analysis on PyTorch/CUDA "
+        description="Loudness, spectrum and waveform analyzer on PyTorch/CUDA "
                     "(port of soundscope-tpu). " + _DECODE_NOTE,
     )
     ap.add_argument("-v", "--version", action="version", version=__version__)
@@ -192,28 +330,26 @@ def main(argv=None) -> int:
     a = sub.add_parser("analyze", help="analyze audio files (one batch per bucket)",
                        description=_DECODE_NOTE)
     a.add_argument("files", nargs="+")
-    a.add_argument("--json", action="store_true")
-    a.add_argument("--compact", action="store_true")
-    a.add_argument("--spectrogram", metavar="DIR",
-                   help="also write pooled mid/side spectrograms (.spec.npz)")
-    a.add_argument("--timeline", metavar="DIR",
-                   help="also write momentary/short-term timelines (.loudness.npz)")
-    a.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                   help="where to compute (default: cuda)")
+    _batch_args(a, spectrogram=True)
     a.set_defaults(fn=cmd_analyze)
 
     s = sub.add_parser("scan", help="recursively analyze a directory",
                        description=_DECODE_NOTE)
     s.add_argument("dir")
-    s.add_argument("--json", action="store_true")
-    s.add_argument("--compact", action="store_true")
-    s.add_argument("--timeline", metavar="DIR",
-                   help="also write momentary/short-term timelines (.loudness.npz)")
-    s.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                   help="where to compute (default: cuda)")
+    _batch_args(s, spectrogram=False)
     s.set_defaults(fn=cmd_scan)
 
-    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
+    t = sub.add_parser("tui", help="interactive TUI (reference-compatible)")
+    t.add_argument("file", nargs="?")
+    t.add_argument("--device", default=None, choices=("cuda", "cpu"),
+                   help="where to analyze (default: cuda)")
+    t.add_argument("--metrics", action="store_true",
+                   help="show the tick and RT-factor readout")
+    t.set_defaults(fn=cmd_tui)
+
+    sub.add_parser("themes", help="list built-in themes").set_defaults(fn=cmd_themes)
+
+    args = ap.parse_args(argv)
     if not getattr(args, "fn", None):
         ap.print_help()
         return 2

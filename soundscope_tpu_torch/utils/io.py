@@ -1,12 +1,18 @@
 """Audio file IO — host-side decode to float32 planar arrays.
 
-The port's own copy of the JAX package's pure-NumPy decoders
-(soundscope_tpu/utils/io.py): a RIFF/WAVE decoder (PCM 8/16/24/32-bit,
-float32/64, WAVE_FORMAT_EXTENSIBLE), an AIFF/AIFC decoder (PCM, sowt), a
-WAV writer for fixtures and export, and the ffmpeg command line for every
-other format where an ffmpeg binary is installed. The JAX package's native
-C++ decoders (FLAC, MPEG audio, ALAC, Vorbis, AAC, the codec bridge) are
-not part of the port.
+The port's own copy of the JAX package's decoders
+(soundscope_tpu/utils/io.py), dispatched as there:
+
+  * a pure-NumPy RIFF/WAVE decoder (PCM 8/16/24/32-bit, float32/64,
+    WAVE_FORMAT_EXTENSIBLE) and AIFF/AIFC (PCM, sowt) decoder, and a WAV
+    writer for fixtures and export;
+  * the native C++ runtime (soundscope_tpu_torch/native): a WAV decoder,
+    the first-party FLAC, MPEG audio (Layers I-III), ALAC with its MP4/CAF
+    demux, Ogg Vorbis and AAC-LC decoders, and the libav codec bridge where
+    the libav headers were found at build time; with
+    utils/flacenc.py, a matching FLAC encoder;
+  * the ffmpeg command line as the last resort, where an ffmpeg binary is
+    installed.
 
 All paths return planar float32 (C, N) and the rate.
 """
@@ -252,12 +258,55 @@ def decode_ffmpeg(path: str) -> DecodedAudio:
 
 # --- dispatch ------------------------------------------------------------------
 
-def decode_file(path: str) -> DecodedAudio:
-    """Decode an audio file to planar float32: WAV and AIFF with NumPy,
-    every other format through the ffmpeg command line."""
+def _native():
+    from soundscope_tpu_torch.native import decoder as native_decoder
+
+    return native_decoder if native_decoder.available() else None
+
+
+def decode_file(path: str, prefer_native: bool = True) -> DecodedAudio:
+    """Decode any supported audio file to planar float32.
+
+    Dispatch: WAV -> native C++ (NumPy fallback); AIFF -> NumPy;
+    FLAC -> first-party native decoder (native/flac.cpp); MPEG audio,
+    Ogg Vorbis, AAC, ALAC/MP4/CAF -> their first-party native decoders;
+    everything else, and what those reject, -> the native codec bridge
+    (native/codecs.cpp), then the ffmpeg command line."""
     ext = os.path.splitext(path)[1].lower().lstrip(".")
+    nat = _native() if prefer_native else None
     if ext in ("wav", "wave"):
+        if nat is not None:
+            try:
+                return nat.decode(path)
+            except DecodeError:
+                pass  # fall through: the NumPy decoder gives the clearer error
         return decode_wav(path)
     if ext in ("aiff", "aif", "aifc"):
         return decode_aiff(path)
+    if nat is not None:
+        # first-party decoders by extension; what one rejects (exotic
+        # framing, a non-Vorbis Ogg payload, AAC in an MP4) tries the next
+        firsts = {
+            "flac": ("decode_flac",),
+            "mp3": ("decode_mp3",), "mp2": ("decode_mp3",),
+            "mp1": ("decode_mp3",), "mpa": ("decode_mp3",),
+            "ogg": ("decode_vorbis",), "oga": ("decode_vorbis",),
+            "ogv": ("decode_vorbis",),
+            "aac": ("decode_aac",),
+        }
+        for e in ("m4a", "m4b", "mp4", "m4r", "m4p", "caf", "alac"):
+            firsts[e] = ("decode_alac", "decode_aac")
+        for fn in firsts.get(ext, ()):
+            try:
+                return getattr(nat, fn)(path)
+            except DecodeError:
+                if fn == firsts[ext][-1] and not nat.codecs_available() \
+                        and _ffmpeg_bin() is None:
+                    raise
+        if nat.codecs_available():
+            try:
+                return nat.decode_any(path)
+            except DecodeError:
+                if _ffmpeg_bin() is None:
+                    raise
     return decode_ffmpeg(path)

@@ -11,7 +11,9 @@ K3-K5 z per group rtol 1e-3 / atol 1e-6 * max|z| and sub-block sums as
 K1's; K6 as K1's peaks; on non-finite input, non-finite exactly where the
 plain version is; K7 y and s_final 2e-5 abs per unit RMS of x; the
 streaming meter at the pins of tests/test_meter_stream.py (1e-3 LU, true
-peak 1e-6).
+peak 1e-6). The TUI's App and the CLI on the card launch the kernels of
+their paths (K3 to open a file, K7 per analysis frame and mic quantum, K1
+and K2 per CLI bucket) and agree with the CPU at those pins.
 """
 
 import subprocess
@@ -600,3 +602,96 @@ def test_get_waveform_decimates_on_the_card(cuda, monkeypatch):
     assert on_card.shape == (30000, 2)
     np.testing.assert_array_equal(on_card, on_cpu)
     np.testing.assert_array_equal(from_host, on_cpu)
+
+
+def _counts_zero():
+    IIR.LAUNCHES.update(dict.fromkeys(IIR.LAUNCHES, 0))
+    K1.LAUNCHES = K2.LAUNCHES = K6.LAUNCHES = 0
+
+
+def test_tui_file_mode_launches_k3_then_k7_per_frame(cuda, tmp_path):
+    """The TUI's App on the card (device=None): opening a file runs the
+    whole-file engine once (K3), each analysis frame one K7 push."""
+    from soundscope_tpu_torch.apps.player import AudioPlayer
+    from soundscope_tpu_torch.apps.tui import App
+    from soundscope_tpu_torch.utils.io import write_wav
+
+    t = np.arange(48000 * 4) / 48000
+    tone = (10 ** (-23 / 20) * np.sin(2 * np.pi * 997.0 * t)).astype(np.float32)
+    song = str(tmp_path / "tone.wav")
+    write_wav(song, np.stack([tone, tone]), 48000, bits=32)
+    app = App(player=AudioPlayer(sink_factory=None), config_dir=str(tmp_path / "cfg"))
+    cpu = App(player=AudioPlayer(sink_factory=None), config_dir=str(tmp_path / "cfg"),
+              device="cpu")
+    try:
+        assert app.device.type == "cuda" and app.file_analyzer.device.type == "cuda"
+        _counts_zero()
+        app.select_audio_file(song)
+        assert IIR.LAUNCHES["K3"] == 1 and app.audio_file is not None
+        cpu.select_audio_file(song)
+        np.testing.assert_array_equal(app.file_waveform, cpu.file_waveform)
+        assert abs(app.fft_gain_db - cpu.fft_gain_db) < 1e-3
+        _counts_zero()
+        start = 16384                                  # a full window exists
+        for k in range(10):
+            app.analyze_audio_file_samples(start + 2 + 2048 * k)
+        assert IIR.LAUNCHES["K7"] == 10
+        for k in range(10):
+            cpu.analyze_audio_file_samples(start + 2 + 2048 * k)
+        np.testing.assert_allclose(app.lufs, cpu.lufs, rtol=0, atol=1e-3)
+        near = cpu.fft_mid[:, 1] > cpu.fft_mid[:, 1].max() - 40.0
+        np.testing.assert_allclose(app.fft_mid[near], cpu.fft_mid[near], rtol=0, atol=1e-3)
+    finally:
+        app.handle_key("q")
+        cpu.handle_key("q")
+
+
+def test_tui_mic_mode_runs_the_live_pipeline_on_card(cuda, tmp_path):
+    from soundscope_tpu_torch.apps.player import AudioPlayer
+    from soundscope_tpu_torch.apps.tui import App, Mode
+
+    app = App(player=AudioPlayer(sink_factory=None), config_dir=str(tmp_path / "cfg"))
+    try:
+        app.handle_key("m")
+        assert app.mode == Mode.MICROPHONE and app.live is not None
+        assert app.live_ready.wait(timeout=600) and app.live_error is None
+        assert app.live.state.ring.is_cuda
+        app.stream.stop()
+        t = np.arange(44100 * 2) / 44100
+        pseudo = np.zeros(2 * len(t), np.float32)
+        pseudo[0::2] = 0.4 * np.sin(2 * np.pi * 700.0 * t)
+        _counts_zero()
+        app.ring.push(pseudo)
+        consumed = app._live_consumed
+        app.analyze_microphone_input()
+        assert IIR.LAUNCHES["K7"] == (app._live_consumed - consumed) // 2048 > 0
+        peak_x = app.fft_mid[np.argmax(app.fft_mid[:, 1]), 0]
+        expect = (np.log10(700) - np.log10(20)) / (np.log10(20000) - np.log10(20)) * 100
+        assert abs(peak_x - expect) < 2.0
+    finally:
+        app.handle_key("q")
+
+
+def test_cli_analyze_flac_launches_k1_and_k2(cuda, tmp_path):
+    import io
+    import json
+    from contextlib import redirect_stdout
+
+    from soundscope_tpu_torch.apps import cli
+    from soundscope_tpu_torch.utils.flacenc import write_flac
+
+    rng = np.random.default_rng(90)
+    files = []
+    for i in range(3):
+        files.append(str(tmp_path / f"n{i}.flac"))
+        write_flac(files[-1], (rng.standard_normal((2, 48000 * 2)) * 0.1).astype(np.float32),
+                   48000)
+    _counts_zero()
+    out = io.StringIO()
+    with redirect_stdout(out):
+        rc = cli.main(["analyze", *files, "--json", "--spectrogram", str(tmp_path / "spec")])
+    rows = json.loads(out.getvalue())
+    assert rc == 0 and [r["file"] for r in rows] == files
+    assert K1.LAUNCHES == 1 and K2.LAUNCHES == 1           # one bucket
+    for r in rows:
+        assert r["integrated_lufs"] is not None and np.load(r["spectrogram"])["mid_db"].size
