@@ -33,7 +33,6 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from soundscope_tpu_torch import __version__
-from soundscope_tpu_torch.core import constants as C
 from soundscope_tpu_torch.core.device import default_device
 from soundscope_tpu_torch.utils import io as sio
 from soundscope_tpu_torch.utils.metrics import GLOBAL as RT
@@ -57,35 +56,13 @@ def _export_path(dir_: str, title: str, suffix: str, used: dict) -> str:
     return os.path.join(dir_, name + suffix)
 
 
-def _bucket_spectrograms(x4, items, rate: int) -> list:
-    """The pooled mid/side spectrogram of every file of a bucket, as
-    ops/stft.spectrogram gives it for each file alone: above 40 kHz one K2
-    over the bucket's frames (a file's first N // 2048 - 7 windows read
-    only its own samples), below it the plain path per file."""
-    from soundscope_tpu_torch.ops.stft import HOP, _pooled_gain_plan, spectrogram
-    from soundscope_tpu_torch.ops.stft_pooled import rate_supported, stft_pooled_frames
-
-    if not rate_supported(rate):
-        return [spectrogram(d.samples, rate, x4.device) for _, d in items]
-    lr = x4[:, :2] if x4.shape[1] >= 2 else x4[:, [0, 0]]
-    mid, side = stft_pooled_frames(lr.contiguous(), rate)
-    mid, side = mid.cpu().numpy(), side.cpu().numpy()
-    _, _, centers = _pooled_gain_plan(C.DEFAULT_FFT_SIZE, rate, 128)
-    out = []
-    for i, (_, d) in enumerate(items):
-        nw = max(d.samples.shape[1] // HOP - C.DEFAULT_FFT_SIZE // HOP + 1, 0)
-        out.append({"chart_x": np.asarray(centers), "mid_db": mid[i, :nw],
-                    "side_db": side[i, :nw], "hop": HOP,
-                    "win": C.DEFAULT_FFT_SIZE, "rate": rate})
-    return out
-
-
 def _analyze_bucket(key, items, results, dev, spectrogram_dir=None,
                     timeline_dir=None, used_names=None) -> None:
     import torch
 
     from soundscope_tpu_torch.core.config import MeterConfig
     from soundscope_tpu_torch.models.engine import analyze_batch_native
+    from soundscope_tpu_torch.ops.stft import spectrogram_batch
 
     ch, rate, npad = key
     used = used_names if used_names is not None else {}
@@ -105,7 +82,7 @@ def _analyze_bucket(key, items, results, dev, spectrogram_dir=None,
     specs = None
     if spectrogram_dir is not None:
         with RT.measure("spectrogram", float(nv.sum()) / rate):
-            specs = _bucket_spectrograms(x4, items, rate)
+            specs = spectrogram_batch(x4, nv, rate)
     for i, (p, d) in enumerate(items):
         with np.errstate(divide="ignore"):
             tp_db = 20.0 * np.log10(tp[i].max())
@@ -312,7 +289,9 @@ def _batch_args(p, spectrogram: bool) -> None:
     p.add_argument("--metrics", action="store_true",
                    help="print per-op RT-factor metrics JSON on stderr")
     p.add_argument("--profile", metavar="DIR",
-                   help="write a torch.profiler Chrome trace of the run to DIR")
+                   help="write a torch.profiler Chrome trace of the run to DIR "
+                        "(on the card its first 64 kernels are padding, under "
+                        "the range 'profile_trace: padding, 64 kernels')")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where to compute (default: cuda)")
 

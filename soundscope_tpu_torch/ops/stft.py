@@ -12,7 +12,8 @@ full pooled spectrogram at that hop over every track:
   gain, so band max-pooling commutes with the monotonic log.
 
 `stft_midside_display` is the plain version of K2 (ops/stft_pooled.py);
-`spectrogram` is the host convenience the CLI calls.
+`spectrogram_batch` is the host convenience the CLI calls once per
+bucket, `spectrogram` its batch of one.
 """
 
 from __future__ import annotations
@@ -123,37 +124,56 @@ def stft_midside_display(
 def spectrogram(samples_planar, rate: int, device=None):
     """Host convenience: planar (C, N) -> dict of pooled display
     spectrograms over every window, computed on `device` (None: the card
-    when there is one).
-
-    Above 40 kHz (where the display range sits below Nyquist) this runs K2
-    (ops/stft_pooled.py: the CUDA kernel on a CUDA device); below, the
-    plain version on any device.
+    when there is one). A batch of one through `spectrogram_batch`.
 
     Returns {"chart_x": (pool,), "mid_db": (nw, pool), "side_db": ...,
     "hop": 2048, "win": 16384, "rate": rate} as numpy arrays.
+    """
+    x = np.asarray(samples_planar, np.float32)
+    xt = torch.from_numpy(np.ascontiguousarray(x[None])).to(default_device(device))
+    return spectrogram_batch(xt, [x.shape[1]], rate)[0]
+
+
+def spectrogram_batch(x: torch.Tensor, valid, rate: int) -> list[dict]:
+    """x: (B, C, N) float32 planar tracks, zero-padded past each item's
+    `valid[b]` samples, on the device the spectrograms are computed on ->
+    one `spectrogram` dict per item, holding its N_b // 2048 - 7 windows
+    (the windows that read only its own samples). L/R are channels 0 and 1;
+    a mono track is its own L and R.
+
+    Above 40 kHz (where the display range sits below Nyquist) this is one
+    K2 launch over the batch (ops/stft_pooled.py: the CUDA kernel on a CUDA
+    tensor); below, the plain path per item, on any device.
     """
     from soundscope_tpu_torch.ops.stft_pooled import (
         rate_supported,
         stft_pooled_frames,
     )
 
-    device = default_device(device)
-    x = np.asarray(samples_planar, np.float32)
-    l, r = (x[0], x[1]) if x.shape[0] >= 2 else (x[0], x[0])
-    _, _, centers = _pooled_gain_plan(C.DEFAULT_FFT_SIZE, rate, 128)
+    b, c = x.shape[:2]
+    x = x.reshape(b, c, -1)
+    lr = x[:, :2] if c >= 2 else x[:, [0, 0]]
     if rate_supported(rate):
-        n = (x.shape[1] // HOP) * HOP
-        frames = torch.from_numpy(np.stack([l[:n], r[:n]])).to(device)
-        mid, side = stft_pooled_frames(frames.reshape(1, 2, n // 128, 128), rate)
+        n = (lr.shape[-1] // HOP) * HOP
+        frames = lr[..., :n].contiguous().reshape(b, 2, n // 128, 128)
+        mid, side = stft_pooled_frames(frames, rate)
+        pairs = list(zip(mid.cpu().numpy(), side.cpu().numpy()))
     else:
-        lt = torch.from_numpy(np.ascontiguousarray(l[None])).to(device)
-        rt = torch.from_numpy(np.ascontiguousarray(r[None])).to(device)
-        _, mid, side = stft_midside_display(lt, rt, rate)
-    return {
-        "chart_x": np.asarray(centers),
-        "mid_db": mid[0].cpu().numpy(),
-        "side_db": side[0].cpu().numpy(),
-        "hop": HOP,
-        "win": C.DEFAULT_FFT_SIZE,
-        "rate": rate,
-    }
+        pairs = []
+        for i in range(b):
+            v = int(valid[i])
+            _, m, s = stft_midside_display(lr[i, 0, :v], lr[i, 1, :v], rate)
+            pairs.append((m.cpu().numpy(), s.cpu().numpy()))
+    _, _, centers = _pooled_gain_plan(C.DEFAULT_FFT_SIZE, rate, 128)
+    out = []
+    for (mid, side), v in zip(pairs, valid):
+        nw = max(int(v) // HOP - C.DEFAULT_FFT_SIZE // HOP + 1, 0)
+        out.append({
+            "chart_x": np.asarray(centers),
+            "mid_db": mid[:nw],
+            "side_db": side[:nw],
+            "hop": HOP,
+            "win": C.DEFAULT_FFT_SIZE,
+            "rate": rate,
+        })
+    return out

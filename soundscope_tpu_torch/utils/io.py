@@ -264,7 +264,7 @@ def _native():
     return native_decoder if native_decoder.available() else None
 
 
-def decode_file(path: str, prefer_native: bool = True) -> DecodedAudio:
+def decode_file(path: str) -> DecodedAudio:
     """Decode any supported audio file to planar float32.
 
     Dispatch: WAV -> native C++ (NumPy fallback); AIFF -> NumPy;
@@ -273,7 +273,7 @@ def decode_file(path: str, prefer_native: bool = True) -> DecodedAudio:
     everything else, and what those reject, -> the native codec bridge
     (native/codecs.cpp), then the ffmpeg command line."""
     ext = os.path.splitext(path)[1].lower().lstrip(".")
-    nat = _native() if prefer_native else None
+    nat = _native()
     if ext in ("wav", "wave"):
         if nat is not None:
             try:

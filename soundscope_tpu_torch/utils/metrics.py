@@ -83,14 +83,19 @@ class TickMonitor:
         return 1000.0 * max(self._times) if self._times else 0.0
 
 
+PADDING_RANGE = "profile_trace: padding, 64 kernels"
+
+
 @contextlib.contextmanager
 def profile_trace(logdir: str):
     """torch.profiler over the enclosed block: host activity, and the CUDA
     device's where there is one, written as a Chrome trace
     (`trace-<pid>.json`, open it in Perfetto or chrome://tracing) into
-    `logdir`. Yields the trace's path."""
+    `logdir`. Yields the trace's path. On the card the trace opens with
+    64 one-element padding kernels under the range `PADDING_RANGE`, which
+    are not part of the block."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     os.makedirs(logdir, exist_ok=True)
     cuda = torch.cuda.is_available()
@@ -102,10 +107,11 @@ def profile_trace(logdir: str):
             # a session, about ten (an H100 in a long-running process:
             # chip_smoke.py phase 15 lost K1 in a quarter of its runs). A
             # burst of 64 one-element kernels, finished before the block
-            # runs, takes their place.
-            x = torch.zeros(1, device="cuda")
-            for _ in range(64):
-                x.add_(0.0)
-            torch.cuda.synchronize()
+            # runs, takes their place; the trace names it as padding.
+            with record_function(PADDING_RANGE):
+                x = torch.zeros(1, device="cuda")
+                for _ in range(64):
+                    x.add_(0.0)
+                torch.cuda.synchronize()
         yield path
     prof.export_chrome_trace(path)

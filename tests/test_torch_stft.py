@@ -20,7 +20,12 @@ from soundscope_tpu.ops.stft import frame_signal as jax_frame_signal
 from soundscope_tpu.ops.stft import spectrogram as jax_spectrogram
 from soundscope_tpu.ops.stft import stft_midside_display as jax_display
 from soundscope_tpu_torch.ops import stft_pooled as K2
-from soundscope_tpu_torch.ops.stft import frame_signal, spectrogram, stft_midside_display
+from soundscope_tpu_torch.ops.stft import (
+    frame_signal,
+    spectrogram,
+    spectrogram_batch,
+    stft_midside_display,
+)
 
 RATES = [48000, 44100]
 
@@ -105,6 +110,34 @@ def test_spectrogram_matches_jax(rate):
     assert np.abs(got["mid_db"] - want["mid_db"]).max() < 1e-3
     assert np.abs(got["side_db"] - want["side_db"]).max() < 1e-3
     assert (got["hop"], got["win"], got["rate"]) == (2048, 16384, rate)
+
+
+@pytest.mark.parametrize("rate,channels", [(48000, 2), (48000, 1), (32000, 6), (32000, 1)])
+def test_spectrogram_batch_matches_per_item(rate, channels):
+    """A zero-padded batch of tracks of three lengths gives each track the
+    JAX `spectrogram` of its own samples: its N // 2048 - 7 windows, L/R
+    from channels 0 and 1 (a mono track its own L and R), within 1e-3 dB;
+    one K2 over the batch above 40 kHz, the plain path per item below.
+    Bands under -140 dB are compared as -140: a mono track's side is the
+    rounding left by L - R = 0 (-170 to -190 dB), which each FFT rounds
+    its own way."""
+    rng = np.random.default_rng(rate + channels)
+    lens = [2048 * 20 + 777, 2048 * 9, 2048 * 5]
+    x = np.zeros((3, channels, lens[0]), np.float32)
+    for i, n in enumerate(lens):
+        x[i, :, :n] = rng.standard_normal((channels, n)) * 0.3
+    got = spectrogram_batch(torch.from_numpy(x), lens, rate)
+    assert [g["mid_db"].shape[0] for g in got] == [13, 2, 0]
+    for i, n in enumerate(lens):
+        want = jax_spectrogram(x[i, :, :n], rate)
+        one = spectrogram(x[i, :, :n], rate, "cpu")
+        assert got[i]["mid_db"].shape == want["mid_db"].shape == one["mid_db"].shape
+        for k in ("mid_db", "side_db"):
+            g, w, o = (np.maximum(d[k], -140.0) for d in (got[i], want, one))
+            assert np.abs(g - w).max(initial=0.0) < 1e-3
+            assert np.abs(g - o).max(initial=0.0) < 1e-3
+        for k in ("chart_x", "hop", "win", "rate"):
+            np.testing.assert_array_equal(got[i][k], want[k])
 
 
 def test_k2_rejects_what_it_cannot_pool():
