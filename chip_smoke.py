@@ -110,6 +110,30 @@ Phases, in order (any failure exits non-zero before the result line):
    spectrograms too, K1 and K2 once (one bucket), the trace naming both;
    the pool's decode audio-seconds per second, files per second end to
    end and the decode thread count.
+16. The sequence-sharded analysis (parallel/) on a world of one NCCL rank
+   (a card takes one rank) and a (1 data x 1 seq) mesh: a 2-hour 48 kHz
+   stereo programme made on the card (10 s sections at -40 to -15 dBFS,
+   n_valid 1,237 short of 345,600,000, garbage past it, padded for 4
+   shards) through the engine (the yardstick: K3 once), through
+   sharded_analyze_fn (K7 once) and as a 4-shard composition in one
+   process (parallel/seqshard.composed_parts, each rank's shard_steps
+   driven in lockstep: K7 7 times). Each within 5e-3 LU of the yardstick on
+   integrated, LRA and the valid timelines, 1e-5 on true peak, sample
+   peak exact; the composition's sub-block sums within rtol 3e-4 / atol
+   2e-5 of seq 1's, and at seq 1 equal to the NCCL run bit for bit. K7
+   at the programme's and a shard's shapes against its plain version
+   (2e-5 per unit RMS: y of the valid samples, the end state of the
+   row's last 4,096 samples, which set it); EBU Tech 3341 case 1 through the sharded path;
+   CUDA-event ms of the seq-1 call, the composition, the yardstick and
+   K7 at both shapes.
+17. The data axis on the same mesh: phase 8's library scan through
+   global_batch, analyze_batch_native on the rank's rows (K5 and K6 once)
+   and the per-track results gathered over "data": equal to phase 8's
+   scan bit for bit. Then the process group is destroyed.
+18. The dryrun entry point (python -m soundscope_tpu_torch.parallel.dryrun)
+   on its default device, the card: one NCCL rank in a child process
+   certifies every component (dryrun_multichip ok on cuda); two ranks on
+   a one-card machine are refused before a rank is spawned.
 
 --k7-times DIR prints phase 12's K7 lines for the port in DIR, so that an
 earlier commit unpacked there is timed in the same run on the same card.
@@ -125,6 +149,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -915,13 +940,21 @@ def device_profile(fn, iters: int, match: str) -> dict:
     kernel, copy and memset), the share of it in operations whose name
     contains `match`, the host wall per call, the device's idle share of
     that wall and the device operations per call; {} when the trace shows
-    no device activity."""
+    no device activity after its marker."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the profiler may drop a session's first device records: 64
+        # one-element kernels take their place, and only device work after
+        # the spin kernel that follows them counts
+        pad = torch.zeros(1, device="cuda")
+        for _ in range(64):
+            pad.add_(0.0)
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.time()
         for _ in range(iters):
             fn()
@@ -929,6 +962,8 @@ def device_profile(fn, iters: int, match: str) -> dict:
         wall_us = (time.time() - t0) * 1e6
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    marks = [b for _, b, name in spans if "spin_kernel" in name]
+    spans = [s for s in spans if marks and s[0] >= marks[-1]]
     if not spans:
         return {}
     total = sum(b - a for a, b, _ in spans)
@@ -941,9 +976,14 @@ def device_profile(fn, iters: int, match: str) -> dict:
         elif b > end:
             busy += b - end
             end = b
+    by_name = {}
+    for a, b, name in spans:
+        by_name[name] = by_name.get(name, 0) + b - a
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {"device_ms": total / 1e3 / iters, "match_ms": ours / 1e3 / iters,
             "share": ours / total, "wall_ms": wall_us / 1e3 / iters,
-            "idle_share": max(0.0, 1.0 - busy / wall_us), "ops": len(spans) / iters}
+            "idle_share": max(0.0, 1.0 - busy / wall_us), "ops": len(spans) / iters,
+            "top": [(name[:60], us / 1e3 / iters) for name, us in top]}
 
 
 # --------------------------------------------------------- the host surfaces
@@ -1341,6 +1381,250 @@ def cli_pool_phase(tmp, on) -> None:
           f"{CLI_FILES / wall_f:.2f} files/s ({wall_f:.3f} s with --profile; the WAV run "
           f"{runs['wav'][1]:.3f} s = {CLI_FILES / runs['wav'][1]:.2f} files/s); metrics "
           f"{json.dumps(rep)}; the trace names K1 and K2; {time.time() - t_phase:.1f} s {on}")
+
+
+# ------------------------------------- the sharded analysis (parallel/)
+
+PROGRAMME_SECONDS, SECTION_SECONDS = 2 * 3600, 10
+PROGRAMME_SHORT = 1237          # n_valid = N - 1,237, garbage past it
+SHARDS = 4
+STATE_TAIL = 4096               # the samples that set K7's end state
+
+
+def programme(gen, n: int, nv: int, dev):
+    """(1, 2, n) float32 on the card: seeded noise in 10 s sections at
+    levels drawn between -40 and -15 dBFS, uniform garbage in [-1, 1)
+    from sample nv on."""
+    import torch
+
+    sec = SECTION_SECONDS * RATE
+    levels = torch.rand(-(-n // sec), generator=gen, device=dev) * 25.0 - 40.0
+    x = torch.randn((1, 2, n), generator=gen, device=dev)
+    gains = (10.0 ** (levels / 20.0)).repeat_interleave(sec)[:n]
+    x.mul_(gains)
+    del gains
+    x[..., nv:] = torch.rand((1, 2, n - nv), generator=gen, device=dev) * 2.0 - 1.0
+    return x
+
+
+def sharded_deltas(what: str, got, ref) -> dict:
+    """The largest delta of each component of the sharded path to the
+    yardstick (parallel/dryrun.component_deltas), held to the JAX
+    package's pins (tests/test_parallel.py): integrated, LRA and the
+    valid timelines within 5e-3 LU, true peak within 1e-5, sample peak
+    exact."""
+    from soundscope_tpu_torch.parallel.dryrun import component_deltas
+
+    d = component_deltas(got, ref)
+    for f, pin in (("integrated_lufs", 5e-3), ("lra_lu", 5e-3), ("momentary", 5e-3),
+                   ("shortterm", 5e-3), ("true_peak", 1e-5), ("sample_peak", 0.0)):
+        require(d[f] <= pin, f"{what}: {f} off the yardstick by {d[f]:.3e} > {pin}")
+    return d
+
+
+def parallel_phases(dev, gen, on, lib) -> dict:
+    """Phases 16-17 on a world of one NCCL rank (a card takes one rank).
+    lib: phase 8's (cfg, rows, n_valid, result) of the library scan."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from soundscope_tpu_torch.core.config import MeterConfig
+    from soundscope_tpu_torch.models.engine import _finish, analyze_batch_native
+    from soundscope_tpu_torch.ops import iir as IIR
+    from soundscope_tpu_torch.ops.biquad import make_block_filter
+    from soundscope_tpu_torch.ops.kweight import kweight_cascade_ss
+    from soundscope_tpu_torch.parallel import (
+        global_batch,
+        init_distributed,
+        make_mesh,
+        pad_for_mesh,
+        sharded_analyze_fn,
+    )
+    from soundscope_tpu_torch.parallel.dryrun import free_port, same
+    from soundscope_tpu_torch.parallel.seqshard import composed_parts, gather_tracks
+
+    out = {}
+    t_phase = time.time()
+    rank_dev = init_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0, device=dev,
+                                timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh(1, seq=1)
+        require(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+        print(f"phase sharded: backend {dist.get_backend()} world {dist.get_world_size()} "
+              f"rank device {rank_dev} mesh {mesh.mesh_dim_names} {tuple(mesh.shape)} "
+              f"on {mesh.device_type}")
+
+        # 16. the 2-hour programme
+        cfg = MeterConfig(channels=2, rate=RATE, max_blocks=0)
+        n = PROGRAMME_SECONDS * RATE
+        npad = pad_for_mesh(n, cfg, SHARDS)
+        nv_n = n - PROGRAMME_SHORT
+        x = programme(gen, npad, nv_n, dev)
+        nv = torch.tensor([nv_n], device=dev)
+        torch.cuda.synchronize()
+
+        zero_launches()
+        ref = analyze_batch_native(cfg, x, nv)
+        torch.cuda.synchronize()
+        ran = launches_now()
+        require(ran["K3"] == 1 and ran["K7"] == 0, f"yardstick launches {ran}")
+        out["yardstick"] = ran
+
+        fn = sharded_analyze_fn(cfg, mesh)
+        xs, nvs = global_batch(mesh, x, nv)
+        require(xs.data_ptr() == x.data_ptr(), "global_batch copied a world of one")
+        zero_launches()
+        res1 = fn(xs, nvs)
+        torch.cuda.synchronize()
+        ran = launches_now()
+        require(ran["K7"] == 1 and sum(ran.values()) == 1,
+                f"seq 1 should launch K7 once and nothing else: {ran}")
+        out["seq1"] = ran
+        d1 = sharded_deltas("sharded seq 1", res1, ref)
+        print(f"phase sharded: 2 h programme ({tuple(x.shape)}, n_valid {nv_n}), seq 1 "
+              f"launches {ran}; largest delta to the yardstick (K3 {out['yardstick']}): "
+              + ", ".join(f"{k} {v:.3e}" for k, v in d1.items()) + f" {on}")
+
+        zero_launches()
+        sums4, tp4, sp4 = composed_parts(cfg, x, nv, SHARDS)
+        torch.cuda.synchronize()
+        ran = launches_now()
+        require(ran["K7"] == 1 + 2 * (SHARDS - 1) and sum(ran.values()) == ran["K7"],
+                f"the {SHARDS}-shard composition should launch K7 {1 + 2 * (SHARDS - 1)} "
+                f"times and nothing else: {ran}")
+        out["composed"] = ran
+        res4 = _finish(cfg, sums4, nv, tp4, sp4)
+        d4 = sharded_deltas(f"{SHARDS}-shard composition", res4, ref)
+        sums1, tp1, sp1 = composed_parts(cfg, x, nv, 1)
+        require(same(_finish(cfg, sums1, nv, tp1, sp1), res1),
+                "the composition at seq 1 differs from the NCCL run")
+        e_sums = check_close(f"{SHARDS}-shard sums vs seq 1", sums4, sums1, 3e-4, 2e-5)
+        print(f"phase sharded: {SHARDS}-shard composition launches {ran}; largest delta to "
+              "the yardstick: " + ", ".join(f"{k} {v:.3e}" for k, v in d4.items())
+              + f"; sub-block sums vs seq 1 max abs err {e_sums:.3e}; the composition at "
+              f"seq 1 equals the NCCL run bit for bit {on}")
+        del sums4, sums1, res4
+
+        # K7 at the path's shapes against its plain version: the whole
+        # programme from zero state, a shard of 4 from its composed state
+        filt = make_block_filter(kweight_cascade_ss(RATE), cfg.block, dev)
+        nloc = npad // SHARDS
+        shard = x[0, :, nloc:2 * nloc].contiguous()
+        s0 = torch.zeros((2, 4), device=dev)
+        s1 = IIR.block_iir_stream(filt, x[0, :, :nloc].contiguous(), s0)[1]   # shard 0's end
+        # y per unit RMS of the valid samples; the end state per unit RMS of
+        # the row's last STATE_TAIL samples, which set it (the filter's
+        # memory is a few hundred samples): at the programme's end these are
+        # the garbage past n_valid, about 12x louder than the programme
+        k7_errs = {}
+        for name, xi, si in (("programme", x[0], s0), ("shard 1 of 4", shard, s1)):
+            rms = float(xi[:, :nv_n].square().mean(dtype=torch.float64).sqrt())
+            rms_end = float(xi[:, -STATE_TAIL:].square().mean(dtype=torch.float64).sqrt())
+            y_k, s_k = IIR.block_iir_stream(filt, xi, si)
+            y_p, s_p = IIR.block_iir_stream_plain(filt, xi, si)
+            ey = max_err(y_k, y_p) / rms
+            es = max_err(s_k, s_p) / rms_end
+            del y_k, y_p
+            require(ey <= 2e-5 and es <= 2e-5,
+                    f"K7 at {name} {tuple(xi.shape)}: y {ey:.3e}, s_final {es:.3e} per unit RMS")
+            k7_errs[name] = ey
+            print(f"phase sharded: K7 at the {name} {tuple(xi.shape)} vs its plain version: "
+                  f"y {ey:.3e} per unit RMS of the valid samples, s_final {es:.3e} per unit "
+                  f"RMS of the last {STATE_TAIL} samples (RMS {rms_end:.4f}, valid {rms:.4f})")
+        out["k7_err_rel"] = max(k7_errs.values())
+
+        # EBU Tech 3341 case 1 through the sharded path
+        ne = 20 * RATE
+        t = torch.arange(pad_for_mesh(ne, cfg, 1), device=dev, dtype=torch.float64) / RATE
+        tone = (10 ** (-23 / 20) * torch.sin(2 * torch.pi * 997.0 * t)).float()
+        tone[ne:] = 0.0
+        r_ebu = fn(*global_batch(mesh, tone.expand(1, 2, -1).contiguous(),
+                                 torch.tensor([ne], device=dev)))
+        ebu = float(r_ebu.integrated_lufs[0])
+        require(abs(ebu + 23.0) < 0.1, f"sharded EBU 3341 case 1: {ebu} LUFS")
+        print(f"phase sharded: EBU 3341 case 1 through sharded_analyze_fn {ebu:.4f} LUFS")
+
+        # timings
+        def composed():
+            sums, tp, sp = composed_parts(cfg, x, nv, SHARDS)
+            return _finish(cfg, sums, nv, tp, sp)
+
+        out["seq1_ms"] = time_ms(lambda: fn(xs, nvs), 3)
+        out["composed_ms"] = time_ms(composed, 3)
+        out["yardstick_ms"] = time_ms(lambda: analyze_batch_native(cfg, x, nv), 5)
+        full = x[0]
+        out["k7_full_ms"] = time_ms(lambda: IIR.block_iir_stream(filt, full, s0), 5)
+        out["k7_full_plain_ms"] = time_ms(lambda: IIR.block_iir_stream_plain(filt, full, s0), 2)
+        out["k7_shard_ms"] = time_ms(lambda: IIR.block_iir_stream(filt, shard, s1), 10)
+        out["k7_shard_plain_ms"] = time_ms(
+            lambda: IIR.block_iir_stream_plain(filt, shard, s1), 2)
+        out["k7_full_shape"], out["k7_shard_shape"] = tuple(full.shape), tuple(shard.shape)
+        print(f"timing sharded: seq 1 {out['seq1_ms']:.4f} ms, {SHARDS}-shard composition "
+              f"{out['composed_ms']:.4f} ms, yardstick (K3 fused) {out['yardstick_ms']:.4f} ms "
+              f"per 2 h programme {on}")
+        print(f"timing K7 kernel {out['k7_full_ms']:.4f} ms plain "
+              f"{out['k7_full_plain_ms']:.4f} ms at {out['k7_full_shape']}; kernel "
+              f"{out['k7_shard_ms']:.4f} ms plain {out['k7_shard_plain_ms']:.4f} ms at "
+              f"{out['k7_shard_shape']} {on}")
+        prof = device_profile(lambda: fn(xs, nvs), 2, "k7_tile")
+        if prof:
+            print(f"profile sharded seq 1: device {prof['device_ms']:.4f} ms per call in "
+                  f"{prof['ops']:.1f} operations, K7 {prof['match_ms']:.4f} ms = "
+                  f"{100 * prof['share']:.1f} %; wall {prof['wall_ms']:.4f} ms, idle share "
+                  f"{prof['idle_share']:.4f}; most device time: "
+                  + "; ".join(f"{n} {ms:.4f} ms" for n, ms in prof["top"])
+                  + f" (torch.profiler, 2 calls) {on}")
+        else:
+            print("profile sharded seq 1: the trace shows no device time (not measured)")
+        print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {on}")
+        del x, xs, shard, full, ref, res1
+        print(f"phase sharded: {time.time() - t_phase:.1f} s {on}")
+
+        # 17. the data axis: the library scan through global_batch
+        t_phase = time.time()
+        cfg_lib, x_lib, nv_lib, res_lib = lib
+        tracks = x_lib.view(nv_lib.shape[0], 2, x_lib.shape[-1])
+        xb, nvb = global_batch(mesh, tracks, nv_lib)
+        zero_launches()
+        got = gather_tracks(mesh, analyze_batch_native(cfg_lib, xb, nvb))
+        torch.cuda.synchronize()
+        ran = launches_now()
+        require(ran["K5"] == 1 and ran["K6"] == 1 and sum(ran.values()) == 2,
+                f"the data axis should launch K5 and K6 once each: {ran}")
+        out["data"] = ran
+        require(same(got, res_lib), "the data axis differs from phase 8's scan")
+        print(f"phase data axis: {tuple(xb.shape)} through global_batch on the world-1 mesh, "
+              f"launches {ran}, gathered over data: equal to phase 8's scan bit for bit; "
+              f"{time.time() - t_phase:.1f} s {on}")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def dryrun_phase(on, limit_s: float = 240.0) -> None:
+    """18. `python -m soundscope_tpu_torch.parallel.dryrun` on its default
+    device, the card: one rank on card 0 (a child process, killed after
+    limit_s) certifies every component; two ranks, on a machine with one
+    card, are refused before a rank is spawned."""
+    import torch
+
+    from soundscope_tpu_torch.parallel.dryrun import launch
+
+    outs = launch(1, timeout=limit_s)
+    line = outs[0].strip().splitlines()[-1]
+    require(line.startswith("dryrun_multichip ok: mesh=(1 data x 1 seq) on cuda"),
+            f"the dryrun on the card: {line}")
+    print(f"phase dryrun: one rank on the card: {line} {on}")
+    if torch.cuda.device_count() < 2:
+        try:
+            launch(2, timeout=limit_s)
+        except RuntimeError as e:
+            require("2 ranks need 2 cards" in str(e), f"two ranks refused for another reason: {e}")
+            print(f"phase dryrun: two ranks on one card refused: {e}")
+        else:
+            raise SmokeFailure("the dryrun ran two ranks on one card")
 
 
 def k7_times_of(root: str) -> int:
@@ -1839,6 +2123,19 @@ def main() -> int:
         cli_pool_phase(tmp, on)
     print(f"chip_smoke: phases 1-15 in {time.time() - t_start:.1f} s {on}")
 
+    # 16.-17. the sharded analysis and the data axis on one NCCL rank
+    t0 = time.time()
+    par = parallel_phases(dev, gen, on, (cfg_lib, x_lib, nv_lib, res_lib))
+    print(f"chip_smoke: phases 16-17 in {time.time() - t0:.1f} s, 1-17 in "
+          f"{time.time() - t_start:.1f} s {on}")
+
+    # 18. the sharded path's own entry point on its default device
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    dryrun_phase(on)
+    print(f"chip_smoke: phase 18 in {time.time() - t0:.1f} s, 1-18 in "
+          f"{time.time() - t_start:.1f} s {on}")
+
     # bounds at the timed shapes (bytes: inputs read once, outputs written once)
     n_bench_all = TRACKS * 2 * n_bench
     nw = n_bench // 2048 - 7
@@ -1883,7 +2180,19 @@ def main() -> int:
          "ms": ms, "plain_ms": plain, "bound_ms": bounds[name[:2]][0],
          "bound_by": bounds[name[:2]][1], "library_ms": None}
         for name, src, rep, n, err, ms, plain in rows]
-    kernels[-1]["max_err_per_unit_rms"] = k7_err_rel
+    kernels[-1]["max_err_per_unit_rms"] = max(k7_err_rel, par["k7_err_rel"])
+    # each path's own run, its counts set to 0 just before and read after
+    by_path = {
+        "K3": {"single file": path_launches["single"]["K3"],
+               "2 h yardstick": par["yardstick"]["K3"]},
+        "K5": {"library scan": path_launches["library"]["K5"], "data axis": par["data"]["K5"]},
+        "K6": {"library scan": path_launches["library"]["K6"], "data axis": par["data"]["K6"]},
+        "K7": {"mic": stream["mic"]["K7"], "sharded seq 1": par["seq1"]["K7"],
+               f"sharded {SHARDS}-shard composition": par["composed"]["K7"]},
+    }
+    for k in kernels:
+        if k["name"][:2] in by_path:
+            k["launches_by_path"] = by_path[k["name"][:2]]
     n_lib = x_lib.numel()
     k7_slab_ms = st["k7_slab"][0]
     for name, (b_ms, by), ms in [
@@ -1897,7 +2206,11 @@ def main() -> int:
             ("K7 at the 5.1 slab shape", bound(4 * (2 * 6 * 192000 + 6 * 8),
                                                6 * 192000 * FILTER_OPS), st["k7_5.1 slab"][0]),
             ("K7 at the TUI shape (2, 8192)", bound(4 * (2 * 2 * 8192 + 2 * 8),
-                                                   2 * 8192 * FILTER_OPS), tui["k7_ms"])]:
+                                                   2 * 8192 * FILTER_OPS), tui["k7_ms"]),
+            *((f"K7 at the sharded shape {par[f'k7_{w}_shape']}",
+               bound(4 * (2 * math.prod(par[f"k7_{w}_shape"]) + 2 * 8),
+                     math.prod(par[f"k7_{w}_shape"]) * FILTER_OPS), par[f"k7_{w}_ms"])
+              for w in ("full", "shard"))]:
         print(f"bound {name}: {b_ms:.7f} ms by {by}, kernel {ms:.4f} ms = "
               f"{ms / b_ms:.1f} x bound {on}")
     print(json.dumps({"kernels": kernels}))

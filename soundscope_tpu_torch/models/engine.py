@@ -25,6 +25,7 @@ never influence results.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -209,6 +210,12 @@ def analyze_fn(cfg: MeterConfig, samples: torch.Tensor,
     valid length -> result without a track axis."""
     nv = torch.as_tensor(n_valid, device=samples.device).reshape(1)
     return analyze_batch_native(cfg, samples[None], nv).track(0)
+
+
+def analyze_batch_fn(cfg: MeterConfig):
+    """(B, C, N) samples, (B,) n_valid -> batched result: the batch
+    entry bound to `cfg` (the JAX package's vmap of analyze_fn)."""
+    return functools.partial(analyze_batch_native, cfg)
 
 
 def pad_bucket(n: int, minimum: int = 1 << 15) -> int:

@@ -247,3 +247,59 @@ def block_iir(bf: BlockFilter, x: torch.Tensor, s0: torch.Tensor):
         y = torch.cat([y, y0r + ysr], dim=-1)
 
     return y, s_last
+
+
+def state_powers(m: np.ndarray, count: int) -> np.ndarray:
+    """m^0 .. m^(count-1) of a float64 (n, n) matrix as (count, n, n),
+    by doubling: log2(count) batched products."""
+    n = m.shape[0]
+    out = np.empty((max(count, 1), n, n))
+    out[0] = np.eye(n)
+    k, mk = 1, np.asarray(m, np.float64)         # mk = m^k
+    while k < count:
+        take = min(k, count - k)
+        out[k:k + take] = out[:take] @ mk
+        mk = mk @ mk
+        k *= 2
+    return out[:count]
+
+
+def block_iir_parts(bf: BlockFilter, x: torch.Tensor):
+    """Zero-state decomposition for sequence-sharded filtering (JAX:
+    ops/biquad.py:block_iir_parts).
+
+    x: (..., N) float32, N a multiple of bf.block. Returns four values:
+      y_zero   (..., N) float32: the outputs from s0 = 0;
+      P        (nb, n, n) float64: P[j] = (A_B^T)^j, which carries an
+               initial state to the start of block j (P[0] = I);
+      s_final0 (..., n) float32: the final state from s0 = 0;
+      P_total  (n, n) float64: (A_B^T)^nb, the whole segment's propagator;
+    so that for any initial state s0
+      y_block_j = y_zero_j + (s0 @ P[j]) @ Ot
+      s_final   = s0 @ P_total + s_final0.
+    The powers come from the filter's float64 A^B in float64 (the JAX
+    package scans them in float32); y_zero and s_final0 are block_iir from
+    zero state. This is the plain version of the sequence-sharded filter
+    (parallel/seqshard.py), whose card path runs K7 instead.
+    """
+    B = bf.block
+    N = x.shape[-1]
+    if N % B:
+        raise ValueError(f"the sharded filter needs N % {B} == 0, got N = {N}")
+    n = bf.A.shape[0]
+    y_zero, s_final0 = block_iir(bf.to(x.device), x, x.new_zeros((*x.shape[:-1], n)))
+    pows = torch.from_numpy(state_powers(bf.A_block.T, N // B + 1)).to(x.device)
+    return y_zero, pows[:-1], s_final0, pows[-1]
+
+
+def iir_reference(ss, x: np.ndarray, s0: np.ndarray | None = None):
+    """Per-sample float64 NumPy evaluation of the system (A, B, C, D) from
+    state s0 (zero by default): (y, s_final). For tests."""
+    A, Bv, Cv, D = ss
+    x = np.asarray(x, np.float64)
+    s = np.zeros(A.shape[0]) if s0 is None else np.asarray(s0, np.float64)
+    y = np.empty_like(x)
+    for i, xi in enumerate(x):
+        y[i] = Cv @ s + D * xi
+        s = A @ s + Bv * xi
+    return y, s

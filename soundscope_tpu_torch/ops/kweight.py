@@ -107,6 +107,19 @@ def kweight_cascade_ss(rate: int):
     return ss
 
 
+def kweight_response_db(rate: int, freqs: np.ndarray) -> np.ndarray:
+    """Magnitude response in dB of the designed cascade at `freqs` Hz."""
+    bs, as_ = design_kweight(rate)
+    w = 2.0 * np.pi * np.asarray(freqs, np.float64) / rate
+    z = np.exp(-1j * w)
+    h = np.ones_like(z)
+    for i in range(2):
+        num = bs[i, 0] + bs[i, 1] * z + bs[i, 2] * z * z
+        den = as_[i, 0] + as_[i, 1] * z + as_[i, 2] * z * z
+        h = h * num / den
+    return 20.0 * np.log10(np.abs(h))
+
+
 def channel_weights(channels: int) -> np.ndarray:
     """BS.1770-4 channel weights under the default channel map.
 

@@ -38,7 +38,9 @@ multiple of its window chunk, and the tail fill around it, are not ported.
 The JAX `dtype` argument is dropped; the port computes in f32.
 
 `stft_pooled_frames` launches the kernel on a CUDA tensor and runs
-`stft_pooled_frames_plain` on a CPU tensor; any other device raises. The
+`stft_pooled_frames_plain` on a CPU tensor; any other device raises.
+`stft_pooled_packed` ((B, 2, N)) and `stft_pooled` (l, r) are views onto
+it, the JAX package's other two entries. The
 kernel pools only bins below Nyquist, so it needs rate > 40 kHz
 (`rate_supported`); callers route lower rates to the plain
 `ops/stft.stft_midside_display` on every device.
@@ -148,6 +150,26 @@ def stft_pooled_frames(frames: torch.Tensor, rate: int):
     _build.raise_on_error(lib, err, "K2 stft_pooled")
     LAUNCHES += 1
     return mid, side
+
+
+def stft_pooled_packed(x: torch.Tensor, rate: int):
+    """x: (B, 2, N) float32 planar stereo -> (mid_db, side_db), each (B,
+    nw, 128), over the first N // 2048 hops (JAX:
+    stft_pooled_pallas_packed). The frames view of those samples is a
+    reshape, a copy only where N is no multiple of 2048. Launches K2 on a
+    CUDA tensor."""
+    if x.ndim != 3 or x.shape[1] != 2:
+        raise ValueError(f"x must be (B, 2, N) stereo, got {tuple(x.shape)}")
+    b, _, n = x.shape
+    m = n // HOP * HOP
+    frames = x[..., :m].reshape(b, 2, m // 128, 128).contiguous()
+    return stft_pooled_frames(frames, rate)
+
+
+def stft_pooled(l: torch.Tensor, r: torch.Tensor, rate: int):
+    """l, r: (B, N) channel signals -> (mid_db, side_db): the packed entry
+    on their stack (JAX: stft_pooled_pallas)."""
+    return stft_pooled_packed(torch.stack([l, r], dim=1), rate)
 
 
 def kernel_attributes() -> dict:
