@@ -134,6 +134,20 @@ Phases, in order (any failure exits non-zero before the result line):
    on its default device, the card: one NCCL rank in a child process
    certifies every component (dryrun_multichip ok on cuda); two ranks on
    a one-card machine are refused before a rank is spawned.
+19. The conformance sweep (soundscope_tpu_torch/tools/conformance.py) at
+   48 kHz and at 44.1 kHz, 32 levels each: every route (K1, K3, K4 + K6,
+   K5, K2, K7) against the float64 chain of tools/reference64.py, each
+   route's errors printed; every route within 0.1 LU integrated, 0.1 dB
+   true peak and 0.1 dB display spectrum, and K1-K7 each launched.
+20. The bench (soundscope_tpu_torch/bench.py) at its default workload,
+   32 x 60 s of 48 kHz stereo: its JSON line printed, its audio-s/s
+   within 15 % of phase 6's main path (both time the same work).
+21. The first `analyze` of a 10 s WAV in a fresh process from a copy of
+   the package with nothing built (the kernels' and the decoders'
+   builds on the way), then `cli warmup --rates 48000 --max-seconds 10`
+   in a child process from a second such copy (5 buckets, K1 and K2
+   once each, each child killed after 300 s) and the first `analyze`
+   there after it; the three wall times printed.
 
 --k7-times DIR prints phase 12's K7 lines for the port in DIR, so that an
 earlier commit unpacked there is timed in the same run on the same card.
@@ -229,29 +243,6 @@ def rows_noise(gen, shape, dev):
     x = torch.randn(shape, generator=gen, device=dev) * 0.1
     x[..., x.shape[-1] // 2:] *= 3.0
     return x
-
-
-# the H100 SXM's published peaks: HBM bytes and float32 operations (outside
-# the tensor cores) per millisecond
-HBM_BYTES_PER_MS = 3.35e12 / 1e3
-F32_OPS_PER_MS = 67e12 / 1e3
-# float32 operations per sample that the functions need, an FMA counting
-# two: the 4-state modal filter, A two 2x2 blocks (advance: 4 multiplies +
-# 8 FMAs; output: 1 multiply + 4 FMAs), the weighted square w*y*y added
-# to a sum, and the polyphase FIR over the phases other than phase 0 (a
-# unit impulse, whose outputs are the samples) and their nonzero taps
-FILTER_OPS = 29
-ENERGY_OPS = 3
-
-
-def fir_ops(factor: int) -> int:
-    return {1: 0, 2: 2 * 1 * 24, 4: 2 * 3 * 12}[factor]
-
-
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """(least ms the card could take, "bytes" or "operations")."""
-    b, o = nbytes / HBM_BYTES_PER_MS, ops / F32_OPS_PER_MS
-    return (b, "bytes") if b >= o else (o, "operations")
 
 
 def energy_close(what, got, want, h, group) -> float:
@@ -1627,6 +1618,138 @@ def dryrun_phase(on, limit_s: float = 240.0) -> None:
             raise SmokeFailure("the dryrun ran two ranks on one card")
 
 
+# ------------------- the conformance sweep, the bench and warmup (19-21)
+
+CONF_LEVELS = 32
+
+
+def conformance_phase(dev, on) -> None:
+    """19. tools/conformance.py at 48 and 44.1 kHz, 32 levels each: every
+    route within the budgets of the float64 chain and every kernel
+    launched."""
+    from soundscope_tpu_torch.tools import conformance
+
+    for rate in (48000, 44100):
+        t0 = time.time()
+        rep = conformance.sweep(CONF_LEVELS, rate, dev)
+        for route, r in rep["routes"].items():
+            errs = ", ".join(f"{k} {r[k]:.6e}" for k in (
+                "integrated_max_err_lu", "true_peak_max_err_db", "stft_pooled_max_err_db")
+                if k in r)
+            print(f"phase conformance: rate {rate} route {route}: {errs}; launches "
+                  f"{r['launches']} {on}")
+        ran = {k for r in rep["routes"].values() for k in r["launches"]}
+        require(rep["pass"], f"conformance at {rate} Hz failed: {json.dumps(rep)}")
+        require(ran >= {f"K{i}" for i in range(1, 8)},
+                f"conformance at {rate} Hz launched only {sorted(ran)}")
+        print(f"phase conformance: rate {rate}, {CONF_LEVELS} levels: worst integrated "
+              f"{rep['integrated_max_err_lu']:.6e} LU, true peak "
+              f"{rep['true_peak_max_err_db']:.6e} dB, spectrum "
+              f"{rep['stft_pooled_max_err_db']:.6e} dB (budgets 0.1), pass; "
+              f"{time.time() - t0:.1f} s {on}")
+
+
+def bench_phase(main_rt: float, main_path, on) -> None:
+    """20. soundscope_tpu_torch.bench at its default workload: its one JSON
+    line, whose audio-s/s must agree with phase 6's within 15 %. Phase
+    6's main path is timed again first, at this point of the run."""
+    from soundscope_tpu_torch import bench
+
+    t0 = time.time()
+    print(f"phase bench: phase 6's main path again {time_ms(main_path, 5):.4f} ms per "
+          f"batch {on}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main([])
+    lines = buf.getvalue().strip().splitlines()
+    require(rc == 0 and len(lines) == 1, f"bench rc {rc}, stdout {lines}")
+    line = json.loads(lines[0])
+    print(f"phase bench: {lines[0]}")
+    ratio = line["value"] / main_rt
+    require(abs(ratio - 1.0) <= 0.15,
+            f"bench {line['value']:.1f} audio-s/s against phase 6's {main_rt:.1f}")
+    print(f"phase bench: {line['value']:.1f} audio-s/s against phase 6's {main_rt:.1f} "
+          f"(ratio {ratio:.4f}); {time.time() - t0:.1f} s {on}")
+
+
+def _package_copy(root: str) -> str:
+    """A copy of the package under `root` without its built libraries (an
+    empty build directory beside it), for fresh processes to build in."""
+    import shutil
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "soundscope_tpu_torch")
+    shutil.copytree(src, os.path.join(root, "soundscope_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__", "*.so", "*.so.*"))
+    return root
+
+
+def _child(args, cwd, limit_s: float = 300.0):
+    """Run python with `args` from `cwd`, killed after limit_s; returns
+    (wall s, rc, stdout, stderr)."""
+    t0 = time.time()
+    out = subprocess.run([sys.executable, *args], cwd=cwd, capture_output=True,
+                         text=True, timeout=limit_s)
+    return time.time() - t0, out.returncode, out.stdout, out.stderr
+
+
+WARMUP_CHILD = """
+import json
+import soundscope_tpu_torch
+from soundscope_tpu_torch.apps import cli
+from soundscope_tpu_torch.ops import iir_chunked, stft_pooled
+rc = cli.main(["warmup", "--rates", "48000", "--max-seconds", "10"])
+print(json.dumps({"rc": rc, "file": soundscope_tpu_torch.__file__,
+                  "K1": iir_chunked.LAUNCHES, "K2": stft_pooled.LAUNCHES}))
+"""
+
+
+def warmup_phase(tmp, on) -> None:
+    """21. The first `analyze` of one file in a fresh process from a copy
+    of the package with nothing built (both libraries built on the way),
+    then `warmup --rates 48000 --max-seconds 10` in a child process from
+    another such copy (K1 and K2 once per bucket) and the first `analyze`
+    there after it."""
+    from soundscope_tpu_torch.utils.io import write_wav
+
+    t_phase = time.time()
+    t = np.arange(10 * RATE) / RATE
+    tone = (10 ** (-23 / 20) * np.sin(2 * np.pi * 997.0 * t)).astype(np.float32)
+    wav = os.path.join(tmp, "tone.wav")
+    write_wav(wav, np.stack([tone, tone]), RATE, bits=32)
+    analyze = ["-m", "soundscope_tpu_torch.apps.cli", "analyze", wav, "--json",
+               "--spectrogram", os.path.join(tmp, "spec")]
+
+    def first_analyze(root, what):
+        wall, rc, out, err = _child(analyze, root)
+        require(rc == 0, f"analyze {what}: rc {rc}\n{err[-2000:]}")
+        rows = json.loads(out)
+        require(abs(rows[0]["integrated_lufs"] + 23.0) < 0.1, f"analyze {what}: {rows}")
+        return wall
+
+    cold = _package_copy(os.path.join(tmp, "cold"))
+    cold_s = first_analyze(cold, "before warmup")
+    for lib in ("build/soundscope_tpu_torch", "soundscope_tpu_torch/native/libssnative_torch.so"):
+        require(os.path.exists(os.path.join(cold, lib)), f"the cold analyze built no {lib}")
+
+    warm = _package_copy(os.path.join(tmp, "warm"))
+    wall, rc, out, err = _child(["-c", WARMUP_CHILD], warm)
+    require(rc == 0, f"warmup child rc {rc}\n{err[-2000:]}")
+    lines = out.strip().splitlines()
+    res = json.loads(lines[-1])
+    buckets = sum(ln.startswith("warmed ") for ln in lines)
+    require(res["rc"] == 0 and res["file"].startswith(warm + os.sep),
+            f"warmup child: {res}")
+    require(buckets == 5 and res["K1"] == buckets and res["K2"] == buckets,
+            f"warmup: {buckets} buckets, launches K1 {res['K1']} K2 {res['K2']}")
+    summary = lines[-2]
+    print(f"phase warmup: child {wall:.1f} s: {summary}; launches K1 {res['K1']} "
+          f"K2 {res['K2']} {on}")
+    warm_s = first_analyze(warm, "after warmup")
+    print(f"phase warmup: first analyze of one 10 s WAV in a fresh process "
+          f"{cold_s:.1f} s with nothing built, {warm_s:.1f} s after warmup; "
+          f"{time.time() - t_phase:.1f} s {on}")
+
+
 def k7_times_of(root: str) -> int:
     """--k7-times ROOT: k7_timings for the port under ROOT (a checkout, such
     as an unpacked earlier commit, to compare in one run on one card)."""
@@ -1660,6 +1783,13 @@ def main() -> int:
     if sys.argv[1:2] == ["--k7-times"]:
         return k7_times_of(sys.argv[2])
     from soundscope_tpu_torch.apps import cli
+    from soundscope_tpu_torch.bench import (
+        ENERGY_OPS,
+        FILTER_OPS,
+        bound,
+        fir_ops,
+        main_path_work,
+    )
     from soundscope_tpu_torch.core.config import MeterConfig
     from soundscope_tpu_torch.models.engine import (
         analyze_array,
@@ -2136,15 +2266,20 @@ def main() -> int:
     print(f"chip_smoke: phase 18 in {time.time() - t0:.1f} s, 1-18 in "
           f"{time.time() - t_start:.1f} s {on}")
 
+    # 19.-21. the conformance sweep, the bench and warmup
+    t0 = time.time()
+    conformance_phase(dev, on)
+    bench_phase(audio_s / (main_ms / 1000), main_path, on)
+    with tempfile.TemporaryDirectory() as tmp:
+        warmup_phase(tmp, on)
+    print(f"chip_smoke: phases 19-21 in {time.time() - t0:.1f} s, 1-21 in "
+          f"{time.time() - t_start:.1f} s {on}")
+
     # bounds at the timed shapes (bytes: inputs read once, outputs written once)
-    n_bench_all = TRACKS * 2 * n_bench
-    nw = n_bench // 2048 - 7
-    fft_ops = 5 * 16384 * 14 + 6 * 16384       # one packed complex FFT + window
     n_slice = x_slice.numel()
     tick = 2 * 800
     bounds = {
-        "K1": bound(4 * n_bench_all, n_bench_all * (FILTER_OPS + ENERGY_OPS + fir_ops(4))),
-        "K2": bound(4 * n_bench_all + 4 * TRACKS * nw * 128 * 2, TRACKS * nw * fft_ops),
+        **{k: bound(*w) for k, w in main_path_work(TRACKS, n_bench, RATE).items()},
         # what this run's data needs: the valid samples (the function reads
         # nothing past n_valid, nor the LFE of weight 0), every output
         "K3": bound(4 * (2 * NV_SINGLE + NPAD // 32 + 4),

@@ -11,6 +11,9 @@ arguments to `tui`. The batch commands analyze whole files on the card:
         [--metrics] [--profile DIR] [--device cuda|cpu]
     python -m soundscope_tpu_torch.apps.cli scan DIR [--json] [...]
     python -m soundscope_tpu_torch.apps.cli themes
+    python -m soundscope_tpu_torch.apps.cli bench [--check] [...]  (soundscope_tpu_torch/bench.py)
+    python -m soundscope_tpu_torch.apps.cli warmup [--rates 44100,48000]
+        [--max-seconds 900] [--batch 1] [--device cuda|cpu]
 
 A thread pool decodes files ahead (the native decoders drop the GIL) while
 the main thread takes them in input order, groups them into (channels,
@@ -28,6 +31,8 @@ import contextlib
 import json
 import os
 import sys
+import tempfile
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -256,7 +261,60 @@ def cmd_tui(args) -> int:
     return run_tui(args.file, device=dev, show_metrics=args.metrics)
 
 
-_SUBCOMMANDS = ("analyze", "scan", "tui", "themes")
+def cmd_warmup(args) -> int:
+    """Fill the caches that outlive a process for the common analyze shapes.
+
+    A fresh process's first `analyze` builds the kernel library with nvcc
+    (``build/soundscope_tpu_torch/<key>/libsstorch.so``) and the native
+    decoders (``native/libssnative_torch.so``); both are kept for every
+    later process (the kernels' keyed by the content of their sources, the
+    decoders' rebuilt when a source is newer or the CPU differs). A
+    one-time `warmup` after install
+    pays for them, then runs one zero-valued bucket per (rate, padded
+    length, batch) up to --max-seconds through the runtime path,
+    `_analyze_bucket` with a spectrogram (on the card K1 and K2 once a
+    bucket), so that every kernel has launched at every bucket shape.
+    """
+    from soundscope_tpu_torch import native
+    from soundscope_tpu_torch.models.engine import pad_bucket
+
+    try:
+        dev = default_device(args.device)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    rates = [int(r) for r in args.rates.split(",") if r.strip()]
+    batches = [int(b) for b in args.batch.split(",") if b.strip()]
+    t0 = time.time()
+    if dev.type == "cuda":
+        from soundscope_tpu_torch.ops import _build
+
+        _build.build()
+    native.build()
+    t_build = time.time() - t0
+    tasks = []
+    for rate in rates:
+        n = pad_bucket(1)  # the smallest bucket
+        while True:
+            tasks += [(rate, n, bsz) for bsz in batches]
+            if n / rate >= args.max_seconds:
+                break
+            n <<= 1
+    with tempfile.TemporaryDirectory() as spec_dir:
+        for rate, n, bsz in tasks:
+            t = time.time()
+            items = [(f"<warmup-{i}>",
+                      sio.DecodedAudio(np.zeros((2, n), np.float32), rate, "warmup"))
+                     for i in range(bsz)]
+            _analyze_bucket((2, rate, n), items, [], dev, spectrogram_dir=spec_dir)
+            print(f"warmed rate={rate} samples={n} batch={bsz} "
+                  f"({time.time() - t:.1f}s)", flush=True)
+    print(f"warmup: {len(tasks)} buckets in {time.time() - t0:.1f} s "
+          f"(build {t_build:.1f} s)")
+    return 0
+
+
+_SUBCOMMANDS = ("analyze", "scan", "tui", "themes", "bench", "warmup")
 
 
 def _normalize_argv(argv: list[str]) -> list[str]:
@@ -298,6 +356,11 @@ def _batch_args(p, spectrogram: bool) -> None:
 
 def main(argv=None) -> int:
     argv = _normalize_argv(sys.argv[1:] if argv is None else argv)
+    if argv[0] == "bench":
+        # the benchmark, in this process, on the rest of the line
+        from soundscope_tpu_torch import bench
+
+        return bench.main(argv[1:])
     ap = argparse.ArgumentParser(
         prog="soundscope-tpu-torch",
         description="Loudness, spectrum and waveform analyzer on PyTorch/CUDA "
@@ -327,6 +390,22 @@ def main(argv=None) -> int:
     t.set_defaults(fn=cmd_tui)
 
     sub.add_parser("themes", help="list built-in themes").set_defaults(fn=cmd_themes)
+
+    # `bench` takes the rest of the line as its own (main() hands it over
+    # before parsing); listed here for the help
+    sub.add_parser("bench", help="the RT-factor benchmark (bench --help for its flags)")
+
+    w = sub.add_parser("warmup", help="build the kernel and decoder libraries and "
+                       "run the common analyze shapes once")
+    w.add_argument("--rates", default="44100,48000",
+                   help="comma-separated sample rates (default 44100,48000)")
+    w.add_argument("--max-seconds", type=float, default=900.0, dest="max_seconds",
+                   help="warm buckets up to this audio duration (default 900)")
+    w.add_argument("--batch", default="1",
+                   help="comma-separated batch sizes to warm (default 1)")
+    w.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="where to compute (default: cuda)")
+    w.set_defaults(fn=cmd_warmup)
 
     args = ap.parse_args(argv)
     if not getattr(args, "fn", None):

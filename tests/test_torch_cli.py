@@ -161,3 +161,13 @@ def test_decoder_errors_match_jax(tmp_path):
     np.testing.assert_array_equal(tio._pcm_to_f32(raw, 16, 1), jio._pcm_to_f32(raw, 16, 1))
     with pytest.raises(tio.DecodeError):
         tio._pcm_to_f32(raw, 12, 1)
+
+
+def test_warmup_runs_one_bucket():
+    # the smallest bucket only: the port's counterpart of the JAX CLI's
+    # warmup test (tests/test_cli.py)
+    rc, out = _run(torch_main, ["warmup", "--device", "cpu", "--rates", "44100",
+                                "--max-seconds", "0.1"])
+    assert rc == 0
+    assert "warmed rate=44100 samples=32768 batch=1" in out
+    assert "warmup: 1 buckets in" in out

@@ -695,3 +695,17 @@ def test_cli_analyze_flac_launches_k1_and_k2(cuda, tmp_path):
     assert K1.LAUNCHES == 1 and K2.LAUNCHES == 1           # one bucket
     for r in rows:
         assert r["integrated_lufs"] is not None and np.load(r["spectrogram"])["mid_db"].size
+
+
+@pytest.mark.parametrize("rate", [48000, 44100])
+def test_conformance_sweep_on_the_card(cuda, rate):
+    """Every route of tools/conformance.py launches its kernels and meets
+    the budgets against the float64 chain (0.1 LU, 0.1 dB true peak,
+    0.1 dB display spectrum)."""
+    from soundscope_tpu_torch.tools import conformance
+
+    report = conformance.sweep(levels=4, rate=rate, device=cuda, stft_windows=2)
+    assert report["pass"], report
+    assert report["not_launched"] == []
+    for route, kernels in conformance.ROUTES.items():
+        assert all(report["routes"][route]["launches"].get(k, 0) >= 1 for k in kernels)
