@@ -12,8 +12,7 @@ arguments to `tui`. The batch commands analyze whole files on the card:
     python -m soundscope_tpu_torch.apps.cli scan DIR [--json] [...]
     python -m soundscope_tpu_torch.apps.cli themes
     python -m soundscope_tpu_torch.apps.cli bench [--check] [...]  (soundscope_tpu_torch/bench.py)
-    python -m soundscope_tpu_torch.apps.cli warmup [--rates 44100,48000]
-        [--max-seconds 900] [--batch 1] [--device cuda|cpu]
+    python -m soundscope_tpu_torch.apps.cli warmup [--device cuda|cpu]
 
 A thread pool decodes files ahead (the native decoders drop the GIL) while
 the main thread takes them in input order, groups them into (channels,
@@ -31,7 +30,6 @@ import contextlib
 import json
 import os
 import sys
-import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -262,55 +260,35 @@ def cmd_tui(args) -> int:
 
 
 def cmd_warmup(args) -> int:
-    """Fill the caches that outlive a process for the common analyze shapes.
+    """Build the libraries that outlive a process, once after install.
 
     A fresh process's first `analyze` builds the kernel library with nvcc
-    (``build/soundscope_tpu_torch/<key>/libsstorch.so``) and the native
-    decoders (``native/libssnative_torch.so``); both are kept for every
-    later process (the kernels' keyed by the content of their sources, the
-    decoders' rebuilt when a source is newer or the CPU differs). A
-    one-time `warmup` after install
-    pays for them, then runs one zero-valued bucket per (rate, padded
-    length, batch) up to --max-seconds through the runtime path,
-    `_analyze_bucket` with a spectrogram (on the card K1 and K2 once a
-    bucket), so that every kernel has launched at every bucket shape.
+    (``build/soundscope_tpu_torch/<key>/libsstorch.so``, keyed by the
+    content of its sources) and the native decoders
+    (``native/libssnative_torch.so``, rebuilt when a source is newer or the
+    CPU differs); every later process loads them. Nothing else is kept
+    from one process to the next (the kernels are built for sm_90a only,
+    no PTX is compiled per shape at run time), so this is all a warmup can
+    do. With --device cpu only the decoders are built.
     """
     from soundscope_tpu_torch import native
-    from soundscope_tpu_torch.models.engine import pad_bucket
 
     try:
         dev = default_device(args.device)
     except RuntimeError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
-    rates = [int(r) for r in args.rates.split(",") if r.strip()]
-    batches = [int(b) for b in args.batch.split(",") if b.strip()]
-    t0 = time.time()
+    parts = []
     if dev.type == "cuda":
         from soundscope_tpu_torch.ops import _build
 
-        _build.build()
-    native.build()
-    t_build = time.time() - t0
-    tasks = []
-    for rate in rates:
-        n = pad_bucket(1)  # the smallest bucket
-        while True:
-            tasks += [(rate, n, bsz) for bsz in batches]
-            if n / rate >= args.max_seconds:
-                break
-            n <<= 1
-    with tempfile.TemporaryDirectory() as spec_dir:
-        for rate, n, bsz in tasks:
-            t = time.time()
-            items = [(f"<warmup-{i}>",
-                      sio.DecodedAudio(np.zeros((2, n), np.float32), rate, "warmup"))
-                     for i in range(bsz)]
-            _analyze_bucket((2, rate, n), items, [], dev, spectrogram_dir=spec_dir)
-            print(f"warmed rate={rate} samples={n} batch={bsz} "
-                  f"({time.time() - t:.1f}s)", flush=True)
-    print(f"warmup: {len(tasks)} buckets in {time.time() - t0:.1f} s "
-          f"(build {t_build:.1f} s)")
+        t0 = time.time()
+        path = _build.build()
+        parts.append(f"kernel library {path} in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    path = native.build()
+    parts.append(f"native decoders {path} in {time.time() - t0:.1f} s")
+    print("warmup: built " + "; ".join(parts))
     return 0
 
 
@@ -395,14 +373,8 @@ def main(argv=None) -> int:
     # before parsing); listed here for the help
     sub.add_parser("bench", help="the RT-factor benchmark (bench --help for its flags)")
 
-    w = sub.add_parser("warmup", help="build the kernel and decoder libraries and "
-                       "run the common analyze shapes once")
-    w.add_argument("--rates", default="44100,48000",
-                   help="comma-separated sample rates (default 44100,48000)")
-    w.add_argument("--max-seconds", type=float, default=900.0, dest="max_seconds",
-                   help="warm buckets up to this audio duration (default 900)")
-    w.add_argument("--batch", default="1",
-                   help="comma-separated batch sizes to warm (default 1)")
+    w = sub.add_parser("warmup", help="build the kernel and decoder libraries "
+                       "that every later process loads")
     w.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where to compute (default: cuda)")
     w.set_defaults(fn=cmd_warmup)

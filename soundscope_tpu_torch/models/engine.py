@@ -102,6 +102,22 @@ class AnalysisResult:
                                  for f in dataclasses.fields(self)})
 
 
+def z_group(cfg: MeterConfig) -> int:
+    """Samples per entry of K3's, K4's and K5's energy z: groups of 32
+    where 32 divides the 100 ms sub-block and the filter block (48 kHz and
+    its family), else 1 (44.1 kHz keeps z per sample)."""
+    return 32 if cfg.subblock % 32 == 0 and cfg.block % 32 == 0 else 1
+
+
+def _sums_from_z(z: torch.Tensor, h: int, g: int) -> torch.Tensor:
+    """(b, nb) 100 ms sub-block energies of z (b, N/g), each entry the sum
+    of g samples of the weighted squared K-weighted signal; the sums are
+    taken in float64."""
+    hg = h // g
+    nb = z.shape[-1] // hg
+    return z[:, : nb * hg].reshape(z.shape[0], nb, hg).double().sum(dim=-1).float()
+
+
 def _finish(cfg: MeterConfig, sums: torch.Tensor, n_valid: torch.Tensor,
             tp: torch.Tensor, sp: torch.Tensor) -> AnalysisResult:
     """Gating/timeline/LRA tail shared by every layout; `sums` is (b, nb)
@@ -182,9 +198,7 @@ def analyze_batch_native(cfg: MeterConfig, samples: torch.Tensor,
         y = torch.where(torch.arange(n, device=dev) < n_valid[:, None, None], y, 0.0)
         sums = L.subblock_sums(L.weighted_square(y, upload(weights, dev)), h)
     else:
-        # the kernels pre-sum groups of 32 samples where 32 divides the
-        # 100 ms sub-block (48 kHz and its family); 44.1 kHz keeps z per sample
-        g = 32 if h % 32 == 0 and cfg.block % 32 == 0 else 1
+        g = z_group(cfg)
         if route == "fused":
             z, tp, sp = IIR.kweight_energy_tp_prefix(filt, samples, n_valid, w,
                                                      cfg.rate, g)
@@ -192,9 +206,7 @@ def analyze_batch_native(cfg: MeterConfig, samples: torch.Tensor,
             z = IIR.kweight_energy_prefix(filt, samples, n_valid, w, g)
         else:
             z = IIR.kweight_energy_chain(filt, samples, n_valid, w, g)
-        hg = h // g
-        nb = z.shape[-1] // hg
-        sums = z[:, : nb * hg].reshape(b, nb, hg).double().sum(dim=-1).float()
+        sums = _sums_from_z(z, h, g)
     if k6:
         tp, sp = true_peak_stream(samples, n_valid, cfg.rate)
     elif tp is None:

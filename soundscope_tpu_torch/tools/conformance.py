@@ -22,7 +22,8 @@ of tools/reference64.py:
          the float64 truth (sub-floor bands are clamped, not measured);
   K7     the streaming meter: models/analyzer.Analyzer fed 1 s slabs.
 
-Integrated loudness from a kernel's z goes through ops/loudness gating.
+Integrated loudness from K4's and K5's z goes through the engine's own
+tail (models/engine._sums_from_z, then _finish's gating).
 Budgets (BS.1770-4 and the display's resolution): 0.1 LU integrated,
 0.1 dB true peak, 0.1 dB display spectrum. On the card every route must
 launch its kernels (the wrappers' LAUNCHES counters); on the CPU
@@ -45,10 +46,9 @@ from soundscope_tpu_torch.core import constants as C
 from soundscope_tpu_torch.core.config import MeterConfig
 from soundscope_tpu_torch.core.device import default_device
 from soundscope_tpu_torch.models.analyzer import Analyzer
-from soundscope_tpu_torch.models.engine import analyze_batch_native
+from soundscope_tpu_torch.models import engine
 from soundscope_tpu_torch.ops import iir as IIR
 from soundscope_tpu_torch.ops import iir_chunked as K1
-from soundscope_tpu_torch.ops import loudness as L
 from soundscope_tpu_torch.ops import stft_pooled as K2
 from soundscope_tpu_torch.ops import truepeak_stream as K6
 from soundscope_tpu_torch.ops.biquad import make_block_filter
@@ -108,19 +108,6 @@ def launch_counts() -> dict:
     return {"K1": K1.LAUNCHES, "K2": K2.LAUNCHES, **IIR.LAUNCHES, "K6": K6.LAUNCHES}
 
 
-def integrated_from_z(z: torch.Tensor, n_valid: torch.Tensor, h: int, g: int):
-    """Gated integrated loudness (b,) of z (b, N/g), each entry the sum of
-    g samples of the weighted squared K-weighted signal, as the engine
-    takes it: 100 ms sums in float64, then ops/loudness gating."""
-    hg = h // g
-    nb = z.shape[-1] // hg
-    sums = z[:, : nb * hg].reshape(z.shape[0], nb, hg).double().sum(dim=-1).float()
-    e = L.gating_energies(sums, h)
-    mask = torch.arange(e.shape[-1], device=z.device)[None] < (
-        n_valid[:, None] // h - (C.MOMENTARY_SUBBLOCKS - 1))
-    return L.gated_loudness(e, mask)
-
-
 def _abs_err(got, want) -> float:
     """Largest |got - want|, equal values (infinities too) counting 0."""
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
@@ -150,31 +137,34 @@ def _routes(xs: np.ndarray, rate: int, dev: torch.device) -> list:
     x3 = torch.from_numpy(xpad).to(dev)
     x4 = x3.reshape(levels, 2, npad // 128, 128)
     nv = torch.full((levels,), n, dtype=torch.int64, device=dev)
-    h = cfg.subblock
-    # the kernels pre-sum groups of 32 samples where 32 divides the 100 ms
-    # sub-block, as the engine does; 44.1 kHz keeps z per sample
-    g = 32 if h % 32 == 0 and cfg.block % 32 == 0 else 1
+    h, g = cfg.subblock, engine.z_group(cfg)
     w = tuple(float(v) for v in channel_weights(2))
     filt = make_block_filter(kweight_cascade_ss(rate), cfg.block, dev)
 
     def k1():
-        res = analyze_batch_native(cfg, x4, nv)
+        res = engine.analyze_batch_native(cfg, x4, nv)
         return res.integrated_lufs, res.true_peak, None
 
     def k3():
-        parts = [analyze_batch_native(cfg, x3[i:i + FUSED_TRACKS], nv[i:i + FUSED_TRACKS])
+        parts = [engine.analyze_batch_native(cfg, x3[i:i + FUSED_TRACKS],
+                                             nv[i:i + FUSED_TRACKS])
                  for i in range(0, levels, FUSED_TRACKS)]
         return (torch.cat([r.integrated_lufs for r in parts]),
                 torch.cat([r.true_peak for r in parts]), None)
 
+    def integrated(z):
+        # the engine's own tail: its 100 ms sums of z, then its gating
+        peaks = torch.zeros((levels, 2), device=dev)
+        return engine._finish(cfg, engine._sums_from_z(z, h, g), nv, peaks,
+                              peaks).integrated_lufs
+
     def k4_k6():
         z = IIR.kweight_energy_prefix(filt, x3, nv, w, g)
         tp, _ = K6.true_peak_stream(x3, nv, rate)
-        return integrated_from_z(z, nv, h, g), tp, None
+        return integrated(z), tp, None
 
     def k5():
-        z = IIR.kweight_energy_chain(filt, x3, nv, w, g)
-        return integrated_from_z(z, nv, h, g), None, None
+        return integrated(IIR.kweight_energy_chain(filt, x3, nv, w, g)), None, None
 
     def k2():
         return None, None, K2.stft_pooled_frames(x4, rate)

@@ -25,7 +25,18 @@ def test_bench_prints_one_json_line(capsys):
     assert line["unit"] == "audio_sec/sec/chip" and line["device"] == "cpu"
     assert np.isfinite(line["value"]) and line["value"] > 0
     # no device figure from a CPU run
-    assert not {"ms_per_iter", "hbm_util", "f32_util", "sol_frac"} & set(line)
+    assert not {"ms_per_iter", "sol_frac"} & set(line)
+
+
+def test_bench_value_counts_every_run(monkeypatch, capsys):
+    # all the audio of all the runs over their summed time: a slow run
+    # (a stall) lowers the figure instead of being dropped
+    times = iter([0.1, 0.4, 0.1])
+    monkeypatch.setattr(bench, "_timed_run", lambda fn, cuda: next(times))
+    assert bench.main(SMALL[:-1] + ["3"]) == 0
+    line = json.loads(capsys.readouterr().out)
+    audio_s = 2 * bench.bench_length(2, 48000) / 48000
+    assert line["value"] == pytest.approx(audio_s / 0.2, rel=1e-12)
 
 
 def test_bench_length_rounds_to_16_blocks():
