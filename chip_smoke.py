@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --nonfinite K3     (one kernel on non-finite input)
+    python3 chip_smoke.py --k2-times DIR     (K2's timings of the port in DIR)
     python3 chip_smoke.py --k7-times DIR     (K7's timings of the port in DIR)
 
 Phases, in order (any failure exits non-zero before the result line):
@@ -41,10 +42,12 @@ Phases, in order (any failure exits non-zero before the result line):
    sub-block sums rtol 3e-4 / atol 2e-5, true peak rtol 2e-6 / atol 1e-7,
    sample peak exact. K3's to K7's resources; two launches bit-identical
    (K6 in every case, K5 on the slice, K3 and K4 at their shapes). Then
-   K1 and K3-K7 on rows holding NaN, +Inf, -Inf and the bit pattern
+   K1-K7 on rows holding NaN, +Inf, -Inf and the bit pattern
    0xFFFFFFFF, each launch in a child process that must end within 300 s:
    non-finite exactly where the plain version is, finite values within
-   the pins, sample peaks equal.
+   the pins, sample peaks equal; K2 on the same rows viewed as frames,
+   and on finite samples whose powers overflow, band by band
+   (nonfinite_k2).
 8. The rows-layout engine path in three configurations at full size, each
    with the launch counts set to 0 just before and read just after:
    the 1,000-track library scan (rows (2000, 720000) through
@@ -148,9 +151,22 @@ Phases, in order (any failure exits non-zero before the result line):
    second such copy (both libraries must be there after it; each child
    killed after 300 s) and the first `analyze` there after it; the
    three wall times printed.
+22. The library-scan bench (soundscope_tpu_torch/tools/
+   library_scan_bench.py) at its defaults, 1,000 x 15 s of 48 kHz stereo
+   in the rows layout: its JSON line printed, K5 and K6 launched, its
+   numbers and its scan's value finite, its ms per scan within 15 % of
+   phase 9's library scan (the same scan, plus a reduction of three
+   device operations and one read-back per run of 4).
+23. The end-to-end scan bench (soundscope_tpu_torch/tools/e2e_scan_bench.py)
+   at 128 x 15 s into a temporary directory: exit 0, no errors, a row for
+   every file made, K1 launched once per bucket of 64 files in the timed
+   scan (and as often in its warm-up, which takes the same files); its
+   line, the corpus build time and its decode rate per thread beside
+   phase 15's printed.
 
---k7-times DIR prints phase 12's K7 lines for the port in DIR, so that an
-earlier commit unpacked there is timed in the same run on the same card.
+--k7-times DIR prints phase 12's K7 lines for the port in DIR, and
+--k2-times DIR K2 at the bench shape three times, so that an earlier
+commit unpacked there is timed in the same run on the same card.
 
 The plain versions run with TF32 off. Prints one JSON line of per-kernel
 numbers (each with its bound: the larger of its bytes over 3.35 TB/s and
@@ -329,7 +345,7 @@ def k1_compare(K1, filt_fn, x4, nv, rate):
     return err
 
 
-NONFINITE_KERNELS = ("K1", "K3", "K4", "K5", "K6", "K7")
+NONFINITE_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
 
 
 def nonfinite_input():
@@ -372,7 +388,7 @@ def nonfinite_close(what, got, ref, rtol, atol) -> int:
 
 
 def nonfinite_child(kernel: str) -> int:
-    """One launch of `kernel` (K1, K3-K7) on nonfinite_input(),
+    """One launch of `kernel` (K1-K7) on nonfinite_input(),
     against its plain version on the same input. Output items that end
     before their track's first non-finite sample are held to the plain
     version on the input with the non-finite samples zeroed: the plain
@@ -384,7 +400,8 @@ def nonfinite_child(kernel: str) -> int:
     rows twice over (66 segments a row, past its look-back) from a finite
     carried state, with no n_valid: its y from each row's first non-finite
     sample on, and the end state of such a row, are non-finite as the
-    plain version's, the rest within 2e-5 per unit RMS of x."""
+    plain version's, the rest within 2e-5 per unit RMS of x. K2 as
+    nonfinite_k2 says."""
     import torch
 
     from soundscope_tpu_torch.ops import iir as IIR
@@ -403,6 +420,8 @@ def nonfinite_child(kernel: str) -> int:
     peaks = None
     if kernel == "K7":
         return nonfinite_k7(IIR, filt, x, xc)
+    if kernel == "K2":
+        return nonfinite_k2(x)
     if kernel == "K6":
         got = K6.true_peak_stream(xg, nvg, 48000)
         torch.cuda.synchronize()
@@ -489,8 +508,98 @@ def nonfinite_k7(IIR, filt, x, xc) -> int:
     return 0
 
 
+def k2_against_plain(what, x):
+    """K2 and its plain version on x (b, 2, n) host float32 viewed as
+    frames, band by band: non-finite where the plain version is, with the
+    same sign; exactly -150 where it is at the floor; within 1e-3 dB
+    elsewhere. Returns the plain version's (mid, side) as float64 on the
+    CPU and the largest dB error."""
+    import torch
+
+    from soundscope_tpu_torch.ops import stft_pooled as K2
+
+    b, _, n = x.shape
+    fr = torch.from_numpy(x).to("cuda").reshape(b, 2, n // 128, 128)
+    got = K2.stft_pooled_frames(fr, RATE)
+    torch.cuda.synchronize()
+    want = K2.stft_pooled_frames_plain(fr, RATE)
+    err, plain = 0.0, []
+    for part, g, w in zip(("mid", "side"), got, want):
+        where = f"{what} K2 {part}"
+        g, w = g.double().cpu(), w.double().cpu()
+        require(g.shape == w.shape == (b, n // 2048 - 7, 128), f"{where}: shape {tuple(g.shape)}")
+        for cls in (torch.isnan, torch.isposinf, torch.isneginf):
+            diff = cls(g) != cls(w)
+            if bool(diff.any()):
+                raise SmokeFailure(
+                    f"{where}: {int(diff.sum())} bands {cls.__name__} in one version and not in "
+                    f"the other (first (track, window, band) {diff.nonzero()[0].tolist()})")
+        floor = w == -150.0
+        off = floor & (g != -150.0)
+        if bool(off.any()):
+            first = off.nonzero()[0].tolist()
+            raise SmokeFailure(f"{where}: {int(off.sum())} bands at the floor in the plain "
+                               f"version read otherwise (first {first}: {g[tuple(first)]} dB)")
+        rest = torch.isfinite(w) & ~floor
+        if bool(rest.any()):
+            err = max(err, float((g[rest] - w[rest]).abs().max()))
+        require(err <= 1e-3, f"{where}: {err:.3e} dB from the plain version")
+        plain.append(w)
+    return plain, err
+
+
+def windows_reached(x, mask):
+    """(b, nw) bool: the windows of x (b, 2, n) that hold a sample of mask."""
+    import torch
+
+    n = x.shape[-1]
+    return torch.tensor([[bool(m[:, 2048 * w: 2048 * w + 16384].any())
+                          for w in range(n // 2048 - 7)] for m in mask])
+
+
+def nonfinite_k2(x) -> int:
+    """K2's part of nonfinite_child, through k2_against_plain, on two
+    inputs. x (3, 2, n) viewed as frames (3, 2, 1056, 128), 59 windows a
+    track; K2 takes no n_valid, so the +Inf past track 1's n_valid is a
+    valid sample for it. A NaN or Inf sample leaves every bin of its
+    windows NaN (Inf - Inf, Inf x 0) in both versions: each track must
+    have a window at the floor in every band because of its bad samples,
+    and the windows clear of them must be finite. Then one track of finite
+    noise with one hop at 1e23 times full scale: the bins' powers overflow
+    to +Inf, and times the zero gain outside 20 Hz-20 kHz to NaN: the
+    bands within the range read +Inf, and band 0, which holds both, the
+    floor (a max that drops the NaN reads +Inf there)."""
+    import torch
+
+    hit = windows_reached(x, ~np.isfinite(x))
+    (mid, side), err = k2_against_plain("non-finite", x)
+    floor_windows = (mid == -150.0).all(-1) & (side == -150.0).all(-1)
+    for i in range(x.shape[0]):
+        require(bool((floor_windows[i] & hit[i]).any()),
+                f"non-finite K2: no window of track {i} reads the floor for its bad samples")
+        require(bool(torch.isfinite(mid[i][~hit[i]]).all()
+                     and torch.isfinite(side[i][~hit[i]]).all()),
+                f"non-finite K2: a window of track {i} clear of the bad samples is not finite")
+
+    big = (np.random.default_rng(SEED + 7).standard_normal((1, 2, 24 * 2048)) * 0.1
+           ).astype(np.float32)
+    big[..., 12 * 2048: 13 * 2048] *= 1e24
+    loud = windows_reached(big, np.abs(big) > 1e10)[0]
+    (bmid, bside), berr = k2_against_plain("overflowing", big)
+    for part, w in (("mid", bmid[0][loud]), ("side", bside[0][loud])):
+        require(bool((w[:, 0] == -150.0).all() and torch.isposinf(w[:, 1:53]).all()),
+                f"overflowing K2 {part}: band 0 not at the floor or bands 1-52 not +Inf in the "
+                "plain version")
+    print(f"phase nonfinite: K2 returned; of {int(hit.sum())} windows a bad sample reaches, "
+          f"{int((floor_windows & hit).sum())} read the floor in every band of mid and side in "
+          f"both versions, the {int((~hit).sum())} clear windows finite; in "
+          f"{int(loud.sum())} windows whose powers overflow, band 0 at the floor and bands "
+          f"1-52 +Inf in both; max abs dB err {max(err, berr):.3e} elsewhere ok")
+    return 0
+
+
 def nonfinite_phase(on, limit_s: float = 300.0) -> None:
-    """K1 and K3-K7 on non-finite input, each launch in a child process
+    """K1-K7 on non-finite input, each launch in a child process
     (all started together) that must end within limit_s."""
     procs = {k: subprocess.Popen([sys.executable, os.path.abspath(__file__), "--nonfinite", k],
                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -1295,8 +1404,9 @@ def tui_mic_phase(tmp, on) -> None:
         app.handle_key("q")
 
 
-def cli_pool_phase(tmp, on) -> None:
-    """15. the CLI through the decode pool on a FLAC corpus."""
+def cli_pool_phase(tmp, on) -> dict:
+    """15. the CLI through the decode pool on a FLAC corpus; returns the
+    pool's decode audio-s/s and the counters' per decode thread."""
     import multiprocessing
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1372,6 +1482,7 @@ def cli_pool_phase(tmp, on) -> None:
           f"{CLI_FILES / wall_f:.2f} files/s ({wall_f:.3f} s with --profile; the WAV run "
           f"{runs['wav'][1]:.3f} s = {CLI_FILES / runs['wav'][1]:.2f} files/s); metrics "
           f"{json.dumps(rep)}; the trace names K1 and K2; {time.time() - t_phase:.1f} s {on}")
+    return {"pool": audio_s / pool_s, "per_thread": rep["decode"]["rt_factor"]}
 
 
 # ------------------------------------- the sharded analysis (parallel/)
@@ -1672,6 +1783,80 @@ def bench_phase(main_rt: float, main_path, on) -> None:
           f"(ratio {ratio:.4f}); {time.time() - t0:.1f} s {on}")
 
 
+def library_scan_phase(scan_ms: float, on) -> None:
+    """22. soundscope_tpu_torch.tools.library_scan_bench at its defaults:
+    one JSON line, K5 and K6 launched, finite numbers, and ms per scan
+    within 15 % of phase 9's `scan_ms` (the same scan of the same shape)."""
+    import re
+
+    from soundscope_tpu_torch.tools import library_scan_bench
+
+    t0 = time.time()
+    zero_launches()
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = library_scan_bench.main([])
+    ran = launches_now()
+    lines = out.getvalue().strip().splitlines()
+    for e in err.getvalue().strip().splitlines():
+        print(f"phase library bench: {e}")
+    require(rc == 0 and len(lines) == 1, f"library bench rc {rc}, stdout {lines}")
+    print(f"phase library bench: {lines[0]}")
+    line = json.loads(lines[0])
+    require(ran["K5"] >= 1 and ran["K6"] >= 1, f"library bench launched {ran}, not K5 and K6")
+    value = re.search(r"first scan .* value (\S+)", err.getvalue())
+    require(value is not None and math.isfinite(float(value.group(1))),
+            f"library bench: the scan's value is not finite: {err.getvalue()[:400]}")
+    require(all(math.isfinite(line[k]) and line[k] > 0
+                for k in ("scan_ms", "rt_factor", "tracks_per_sec")), f"library bench {line}")
+    ratio = line["scan_ms"] / scan_ms
+    require(abs(ratio - 1.0) <= 0.15,
+            f"library bench {line['scan_ms']:.4f} ms per scan against phase 9's {scan_ms:.4f}")
+    print(f"phase library bench: {line['scan_ms']:.4f} ms per scan against phase 9's "
+          f"{scan_ms:.4f} ms (ratio {ratio:.4f}), launches {ran}; {time.time() - t0:.1f} s {on}")
+
+
+E2E_TRACKS, E2E_SECONDS = 128, 15
+
+
+def e2e_scan_phase(pool: dict, on) -> None:
+    """23. soundscope_tpu_torch.tools.e2e_scan_bench at 128 x 15 s into a
+    temporary directory: exit 0, no errors, a row for every file made,
+    and K1 once per bucket of the timed scan. The warm-up takes one full
+    bucket plus the last partial bucket's size, which is every file of a
+    corpus of at most 128, so it launches K1 as often again. pool: phase
+    15's decode figures, printed beside the bench's (context, not a gate:
+    this corpus mixes kinds of file)."""
+    from soundscope_tpu_torch.apps.cli import FLUSH_AT
+    from soundscope_tpu_torch.tools import e2e_scan_bench
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_launches()
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = e2e_scan_bench.main([str(E2E_TRACKS), str(E2E_SECONDS), "--keep", tmp])
+        ran = launches_now()
+        files = [f for f in os.listdir(tmp) if f.startswith("track")]
+    lines = out.getvalue().strip().splitlines()
+    for e in err.getvalue().strip().splitlines():
+        print(f"phase e2e bench: {e}")
+    require(rc == 0 and len(lines) == 1, f"e2e bench rc {rc}, stdout {lines}")
+    print(f"phase e2e bench: {lines[0]}")
+    line = json.loads(lines[0])
+    require(line["errors"] == 0 and line["tracks"] == len(files) > 0,
+            f"e2e bench: {line['tracks']} rows, {line['errors']} errors, {len(files)} files")
+    buckets = -(-len(files) // FLUSH_AT)
+    require(len(files) <= 2 * FLUSH_AT and ran["K1"] == 2 * buckets
+            and sum(ran.values()) == ran["K1"],
+            f"e2e bench: launches {ran} for {buckets} buckets of {len(files)} files")
+    print(f"phase e2e bench: {len(files)} files of {line['kinds']}, K1 {buckets} times in the "
+          f"timed scan ({ran['K1']} with the warm-up); decode {line['decode_rt']} audio-s/s "
+          f"per thread on {line['decode_threads']} threads against phase 15's "
+          f"{pool['per_thread']} per thread ({pool['pool']:.1f} for its pool of FLACs); "
+          f"{time.time() - t0:.1f} s {on}")
+
+
 def _package_copy(root: str) -> str:
     """A copy of the package under `root` without its built libraries (an
     empty build directory beside it), for fresh processes to build in."""
@@ -1735,9 +1920,22 @@ def warmup_phase(tmp, on) -> None:
           f"{time.time() - t_phase:.1f} s {on}")
 
 
-def k7_times_of(root: str) -> int:
-    """--k7-times ROOT: k7_timings for the port under ROOT (a checkout, such
-    as an unpacked earlier commit, to compare in one run on one card)."""
+def k2_timings(dev, gen, on) -> None:
+    """K2 at the bench shape (32 x 60 s of 48 kHz stereo noise): CUDA-event
+    ms per launch over 5 launches, three times. Times the
+    soundscope_tpu_torch on sys.path."""
+    from soundscope_tpu_torch.ops import stft_pooled as K2
+
+    x = noise(gen, (TRACKS, 2, SECONDS * RATE // 2048 * 16, 128), dev)
+    out = [time_ms(lambda: K2.stft_pooled_frames(x, RATE), 5) for _ in range(3)]
+    print(f"timing K2 kernel {' '.join(f'{ms:.4f}' for ms in out)} ms, mean "
+          f"{sum(out) / 3:.4f} ms (bench shape {tuple(x.shape)}) {on}")
+
+
+def times_of(kernel: str, root: str) -> int:
+    """--k2-times / --k7-times ROOT: k2_timings or k7_timings for the port
+    under ROOT (a checkout, such as an unpacked earlier commit, to compare
+    in one run on one card)."""
     import torch
 
     root = os.path.abspath(root)
@@ -1746,13 +1944,13 @@ def k7_times_of(root: str) -> int:
     from soundscope_tpu_torch.ops import _build
 
     require(os.path.abspath(soundscope_tpu_torch.__file__).startswith(root + os.sep),
-            f"--k7-times: soundscope_tpu_torch imported from {soundscope_tpu_torch.__file__}")
+            f"soundscope_tpu_torch imported from {soundscope_tpu_torch.__file__}")
     _build.library()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    print(f"k7 times of {root}")
-    k7_timings(dev, gen, f"[{card_line()}]")
+    print(f"{kernel} times of {root}")
+    (k2_timings if kernel == "K2" else k7_timings)(dev, gen, f"[{card_line()}]")
     return 0
 
 
@@ -1765,8 +1963,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if sys.argv[1:2] == ["--nonfinite"]:
         return nonfinite_child(sys.argv[2])
-    if sys.argv[1:2] == ["--k7-times"]:
-        return k7_times_of(sys.argv[2])
+    if sys.argv[1:2] in (["--k2-times"], ["--k7-times"]):
+        return times_of(sys.argv[1][2:4].upper(), sys.argv[2])
     from soundscope_tpu_torch.apps import cli
     from soundscope_tpu_torch.bench import (
         ENERGY_OPS,
@@ -2235,7 +2433,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         tui = tui_file_phase(dev, tmp, on)
         tui_mic_phase(tmp, on)
-        cli_pool_phase(tmp, on)
+        pool = cli_pool_phase(tmp, on)
     print(f"chip_smoke: phases 1-15 in {time.time() - t_start:.1f} s {on}")
 
     # 16.-17. the sharded analysis and the data axis on one NCCL rank
@@ -2258,6 +2456,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         warmup_phase(tmp, on)
     print(f"chip_smoke: phases 19-21 in {time.time() - t0:.1f} s, 1-21 in "
+          f"{time.time() - t_start:.1f} s {on}")
+
+    # 22.-23. the library-scan and end-to-end scan benches
+    t0 = time.time()
+    library_scan_phase(scan_ms, on)
+    e2e_scan_phase(pool, on)
+    print(f"chip_smoke: phases 22-23 in {time.time() - t0:.1f} s, 1-23 in "
           f"{time.time() - t_start:.1f} s {on}")
 
     # bounds at the timed shapes (bytes: inputs read once, outputs written once)

@@ -27,6 +27,8 @@
 //            takes the max of 4 bands (x mid, side) with warp shuffles
 //            and writes each band once: 10 log10 with the -150 dB floor;
 //            bands 64-127 (at or above Nyquist, gain 0) are the floor.
+//            The max keeps a NaN, so a band holding a NaN bin reads the
+//            floor and one of +Inf bins +Inf dB, as in the plain version.
 //
 // Thread (0, 0) is the exception to the pairing: it holds the two groups
 // that are their own partners, (0, 0) (partner k3' = -k3 mod 16) and
@@ -70,6 +72,15 @@ constexpr int TW_COARSE = 128;
 constexpr int TW_PASS2 = 256;
 constexpr int TW_LEN = 768;
 constexpr int SMEM = 2 * WIN * (int)sizeof(float) + TW_LEN * (int)sizeof(float2);
+
+// max that returns NaN when either operand is NaN, as the plain version's
+// amax does (fmaxf drops a NaN); the same as iir_common.cuh's, whose
+// THREADS this file cannot share
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
   return make_float2(a.x + b.x, a.y + b.y);
@@ -277,9 +288,9 @@ k2_stft_pooled(const float* __restrict__ x, int64_t n, int64_t nw,
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const float* p = (j < 4 ? re : im) + (4 * q + (j & 3)) * 128 + lane;
-    float m = fmaxf(fmaxf(p[0], p[32]), fmaxf(p[64], p[96]));
+    float m = fmax_nan(fmax_nan(p[0], p[32]), fmax_nan(p[64], p[96]));
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    for (int o = 16; o > 0; o >>= 1) m = fmax_nan(m, __shfl_xor_sync(0xffffffffu, m, o));
     if (lane == j) mine = m;
   }
   const int64_t row = (trk * nw + w) * BANDS;

@@ -11,6 +11,8 @@ samples at a 2048-sample hop) it computes
    per-bin display gain (4/N dBFS, +3 dB/oct pink, 0 outside 20 Hz-20 kHz);
 4. the max over each band of 128 consecutive bins, then 10*log10 with the
    -150 dB floor; bands 64-127 lie at or above Nyquist and read the floor.
+   The max keeps a NaN (an overflowed power times a zero gain), so such a
+   band reads the floor, as in the plain version.
 
 The TPU evaluates the FFT as four-step 128x128 DFT matmuls, because its
 matrix unit is its only fast unit: about 50 MFLOP per window. On the H100,

@@ -347,7 +347,7 @@ def test_rows_energy_kernels_on_few_long_rows(cuda, kernel, rate, group):
     _energy_close(got[0], want[0], (rate + 5) // 10, group)
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K3", "K4", "K5", "K6", "K7"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5", "K6", "K7"])
 def test_kernels_on_nonfinite_input(cuda, kernel):
     """NaN, +Inf, -Inf and the bit pattern 0xFFFFFFFF in the input: the
     launch returns (a child process with a time limit, so a launch that
@@ -709,3 +709,23 @@ def test_conformance_sweep_on_the_card(cuda, rate):
     assert report["not_launched"] == []
     for route, kernels in conformance.ROUTES.items():
         assert all(report["routes"][route]["launches"].get(k, 0) >= 1 for k in kernels)
+
+
+def test_library_scan_bench_on_the_card(cuda, capsys):
+    """tools/library_scan_bench.py at 16 x 2 s on its default device, the
+    card: one JSON line naming the card, finite positive figures, and the
+    scan through the rows kernels (32 rows: K3)."""
+    import json
+
+    from soundscope_tpu_torch.tools import library_scan_bench
+
+    IIR.LAUNCHES.update(dict.fromkeys(IIR.LAUNCHES, 0))
+    assert library_scan_bench.main(["16", "2", "--repeats", "1"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    assert line["metric"] == "library_scan_rt_factor" and line["tracks"] == 16
+    assert line["device"] == torch.cuda.get_device_name(cuda)
+    for k in ("scan_ms", "rt_factor", "tracks_per_sec"):
+        assert np.isfinite(line[k]) and line[k] > 0
+    assert sum(IIR.LAUNCHES.values()) >= 1

@@ -62,6 +62,65 @@ def test_plain_k2_matches_pallas_interpret(rate):
     assert np.abs(side.numpy()[:, :nw] - np.asarray(js)).max() < 1e-3
 
 
+def _assert_same_bands(got, want):
+    """Band by band: NaN, +Inf and -Inf in the same places, equal where
+    either is at the -150 dB floor, within 1e-3 dB elsewhere."""
+    for cls in (np.isnan, np.isposinf, np.isneginf):
+        np.testing.assert_array_equal(cls(got), cls(want))
+    floor = (got == -150.0) | (want == -150.0)
+    np.testing.assert_array_equal(got[floor], want[floor])
+    rest = np.isfinite(want) & ~floor
+    assert np.abs(got[rest] - want[rest]).max() < 1e-3
+
+
+def test_plain_k2_on_nonfinite_input_matches_pallas_interpret():
+    """NaN, +Inf, -Inf and the bit pattern 0xFFFFFFFF in the left channel
+    of 2 tracks of 10 windows: K2's plain version against the Pallas
+    kernel in interpret mode (one chunk of 10 windows), which packs mid +
+    i side into one FFT as K2 does. Every band non-finite in the same way
+    in both, equal where either is at the -150 dB floor, within 1e-3 dB
+    elsewhere: the reference that K2 is held to on the card. The windows
+    a bad sample reaches read the floor, the others are finite."""
+    rate = 48000
+    x = _stereo(rate, 2, 17, seed=11)               # 10 windows a track
+    n = x.shape[-1]
+    x[0, 0, 100] = np.inf                            # window 0 alone
+    x[0, 0, n - 100] = -np.inf                       # window 9 alone
+    x[1, 0, 5000] = np.nan                           # windows 0-2
+    x.view(np.int32)[1, 0, 30000] = -1               # windows 7-9
+    hit = [[0, 9], [0, 1, 2, 7, 8, 9]]               # the windows each track's reach
+    mid, side = K2.stft_pooled_frames(_frames(x), rate)
+    jm, js = stft_pooled_pallas_frames(jnp.asarray(x.reshape(2, 2, -1, 128)), rate,
+                                       wchunk=10, interpret=True)
+    for got, want in ((mid.numpy(), np.asarray(jm)), (side.numpy(), np.asarray(js))):
+        assert got.shape == want.shape == (2, 10, 128)
+        _assert_same_bands(got, want)
+        for t, ws in enumerate(hit):
+            clear = np.setdiff1d(np.arange(10), ws)
+            assert (got[t, ws] == -150.0).all()
+            assert np.isfinite(got[t, clear]).all() and (got[t, clear, :64] > -150.0).any()
+
+
+def test_plain_k2_on_overflowing_input_matches_jax_xla():
+    """Finite samples at 1e23 whose bins' powers overflow float32: K2's
+    plain version against the JAX package's XLA display path, band by
+    band. Within 20 Hz-20 kHz the bands read +Inf; band 0 holds bins of
+    zero gain, whose Inf x 0 is NaN, and reads the floor. The card check
+    (chip_smoke.py --nonfinite K2) holds K2 to this. The Pallas kernel
+    reads every band of such a window at the floor instead: its mid and
+    side powers 0.25 (p + p_rev +- 2 c) take Inf - Inf."""
+    rate = 48000
+    x = _stereo(rate, 1, 17, seed=13)
+    x[..., 5 * 2048: 6 * 2048] *= 1e24              # windows 0-5
+    mid, side = K2.stft_pooled_frames(_frames(x), rate)
+    _, jm, js = jax_display(jnp.asarray(x[:, 0]), jnp.asarray(x[:, 1]), rate)
+    for got, want in ((mid.numpy(), np.asarray(jm)), (side.numpy(), np.asarray(js))):
+        _assert_same_bands(got, want)
+        loud = got[0, :6]
+        assert (loud[:, 0] == -150.0).all() and np.isposinf(loud[:, 1:53]).all()
+        assert (loud[:, 53:] == -150.0).all() and np.isfinite(got[0, 6:]).all()
+
+
 @pytest.mark.parametrize("rate", RATES)
 def test_port_f32_within_bf16_display_tolerance(rate):
     x = _stereo(rate, 1, 24, seed=9)
