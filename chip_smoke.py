@@ -629,6 +629,7 @@ def k7_phase(dev, gen, on) -> tuple[float, float]:
     from soundscope_tpu_torch.ops import iir as IIR
     from soundscope_tpu_torch.ops.biquad import make_block_filter
     from soundscope_tpu_torch.ops.kweight import kweight_cascade_ss
+    from soundscope_tpu_torch.utils.metrics import launches
 
     worst, worst_rel = 0.0, 0.0
     cases = ([(48000, (2, n)) for n in (1, 7, 127, 333, 2048)]
@@ -638,9 +639,9 @@ def k7_phase(dev, gen, on) -> tuple[float, float]:
         filt = make_block_filter(kweight_cascade_ss(rate), 128, dev)
         x = torch.randn(shape, generator=gen, device=dev) * 0.3
         s0 = torch.randn((*shape[:-1], 4), generator=gen, device=dev) * 0.1
-        before = IIR.LAUNCHES["K7"]
+        before = launches()["K7"]
         y, s = IIR.block_iir_stream(filt, x, s0)
-        require(IIR.LAUNCHES["K7"] == before + 1, "K7 did not count its launch")
+        require(launches()["K7"] == before + 1, "K7 did not count its launch")
         yp, sp = IIR.block_iir_stream_plain(filt, x, s0)
         torch.cuda.synchronize()
         tol = 2e-5 * max(float(x.pow(2).mean().sqrt()), 1e-3)
@@ -771,17 +772,7 @@ def streaming_phase(dev, gen, on) -> dict:
     from soundscope_tpu_torch.models.analyzer import Analyzer
     from soundscope_tpu_torch.models.engine import analyze_array
     from soundscope_tpu_torch.models.live import LiveAnalyzer
-    from soundscope_tpu_torch.ops import iir as IIR
-    from soundscope_tpu_torch.ops import iir_chunked as K1
-    from soundscope_tpu_torch.ops import stft_pooled as K2
-    from soundscope_tpu_torch.ops import truepeak_stream as K6
-
-    def zero_counts():
-        IIR.LAUNCHES.update(dict.fromkeys(IIR.LAUNCHES, 0))
-        K1.LAUNCHES = K2.LAUNCHES = K6.LAUNCHES = 0
-
-    def counts():
-        return {"K1": K1.LAUNCHES, "K2": K2.LAUNCHES, **IIR.LAUNCHES, "K6": K6.LAUNCHES}
+    from soundscope_tpu_torch.utils.metrics import launches
 
     def pushing(fn):
         torch.cuda.set_sync_debug_mode("error")
@@ -802,14 +793,14 @@ def streaming_phase(dev, gen, on) -> dict:
     inter[0::2] = mono                          # pseudo-stereo [x, 0]
     cfg = MeterConfig(channels=2, rate=rate, max_blocks=0)
     live = LiveAnalyzer(cfg, device=dev)
-    zero_counts()
+    base = launches()
     t0 = time.time()
     for k in range(ticks):
         pushing(lambda: live.push(inter[2 * tick * k: 2 * tick * (k + 1)]))
         frame = live.frame()
     torch.cuda.synchronize()
     out["mic_wall_s"] = time.time() - t0
-    out["mic"] = counts()
+    out["mic"] = launches(since=base)
     require(out["mic"]["K7"] == ticks,
             f"mic simulation: K7 launched {out['mic']['K7']} times for {ticks} pushes")
     peak_x = live.spectrum_chart_x[int(np.argmax(frame.fft_mid))]
@@ -841,12 +832,12 @@ def streaming_phase(dev, gen, on) -> dict:
     track[:, : rate * 20] *= 0.05                     # a quiet intro
     inter = track.T.contiguous().reshape(-1)
     an = Analyzer(channels=2, rate=rate, device=dev)
-    zero_counts()
+    base = launches()
     t0 = time.time()
     pushing(lambda: an.add_samples(inter))
     torch.cuda.synchronize()
     out["slab_wall_s"] = time.time() - t0
-    out["track"] = counts()
+    out["track"] = launches(since=base)
     require(out["track"]["K7"] == secs, f"240 s track: K7 launched {out['track']['K7']} "
             f"times for {secs} slabs")
     ref = analyze_array(track.cpu().numpy(), MeterConfig(channels=2, rate=rate, max_blocks=0),
@@ -1094,25 +1085,6 @@ DRAW_EVERY = 64                 # frames between draws (one draw is ~0.5 s)
 CLI_FILES, CLI_SECONDS = 32, 60
 
 
-def zero_launches() -> None:
-    from soundscope_tpu_torch.ops import iir as IIR
-    from soundscope_tpu_torch.ops import iir_chunked as K1
-    from soundscope_tpu_torch.ops import stft_pooled as K2
-    from soundscope_tpu_torch.ops import truepeak_stream as K6
-
-    IIR.LAUNCHES.update(dict.fromkeys(IIR.LAUNCHES, 0))
-    K1.LAUNCHES = K2.LAUNCHES = K6.LAUNCHES = 0
-
-
-def launches_now() -> dict:
-    from soundscope_tpu_torch.ops import iir as IIR
-    from soundscope_tpu_torch.ops import iir_chunked as K1
-    from soundscope_tpu_torch.ops import stft_pooled as K2
-    from soundscope_tpu_torch.ops import truepeak_stream as K6
-
-    return {"K1": K1.LAUNCHES, "K2": K2.LAUNCHES, **IIR.LAUNCHES, "K6": K6.LAUNCHES}
-
-
 def write_pcm16_wav(path: str, ints: np.ndarray, rate: int) -> None:
     """Planar (C, N) int16 as a 16-bit PCM WAV (the FLAC encoder's grid)."""
     import struct
@@ -1200,6 +1172,7 @@ def tui_file_phase(dev, tmp, on) -> dict:
     from soundscope_tpu_torch.ops.kweight import kweight_cascade_ss
     from soundscope_tpu_torch.utils import io as sio
     from soundscope_tpu_torch.utils.flacenc import write_flac
+    from soundscope_tpu_torch.utils.metrics import launches
 
     t_phase = time.time()
     rate, secs = TUI_RATE, TUI_SECONDS
@@ -1246,11 +1219,11 @@ def tui_file_phase(dev, tmp, on) -> dict:
         app.file_analyzer.calculate_integrated_lufs = timed(
             "integrated", app.file_analyzer.calculate_integrated_lufs)
         try:
-            zero_launches()
+            base = launches()
             t0 = time.perf_counter()
             app.select_audio_file(flac)
             open_ms = (time.perf_counter() - t0) * 1000
-            opened = launches_now()
+            opened = launches(since=base)
         finally:
             tui_mod.Analyzer.get_waveform = staticmethod(saved_wf)
             player_mod.decode_file = saved_dec
@@ -1275,7 +1248,7 @@ def tui_file_phase(dev, tmp, on) -> dict:
         # every playhead report of the first 60 s, at the reference cadence
         frame_ms, draw_ms = [], []
         positions = [2048 * (k + 1) for k in range(TUI_POSITIONS)]
-        zero_launches()
+        base = launches()
         for k, pos in enumerate(positions):
             t0 = time.perf_counter()
             app.analyze_audio_file_samples(pos)
@@ -1285,7 +1258,7 @@ def tui_file_phase(dev, tmp, on) -> dict:
                 t0 = time.perf_counter()
                 app.draw(scr)
                 draw_ms.append((time.perf_counter() - t0) * 1000)
-        ran = launches_now()
+        ran = launches(since=base)
         want_k7 = sum(p > 16384 for p in positions)
         require(ran["K7"] == want_k7 and sum(ran.values()) == want_k7,
                 f"{len(positions)} analysis frames launched {ran}, not K7 {want_k7} times")
@@ -1353,6 +1326,7 @@ def tui_mic_phase(tmp, on) -> None:
     from soundscope_tpu_torch.apps.capture import _pseudo_stereo, make_ring
     from soundscope_tpu_torch.apps.player import AudioPlayer
     from soundscope_tpu_torch.native import NativeRing
+    from soundscope_tpu_torch.utils.metrics import launches
 
     t_phase = time.time()
     app = tui_mod.App(player=AudioPlayer(sink_factory=SilentSink),
@@ -1374,7 +1348,7 @@ def tui_mic_phase(tmp, on) -> None:
         app._live_consumed = 0
         app.live.reset()
         ticks, tick_ms, pushed, fed = 3600, [], [], 0
-        zero_launches()
+        base = launches()
         for k in range(ticks):
             n = round((k + 1) * rate * 0.008) - round(k * rate * 0.008)
             i = np.arange(fed, fed + n)
@@ -1387,7 +1361,7 @@ def tui_mic_phase(tmp, on) -> None:
             tick_ms.append((time.perf_counter() - t0) * 1000)
             if app._live_consumed != before:
                 pushed.append(tick_ms[-1])
-        ran = launches_now()
+        ran = launches(since=base)
         quanta = app._live_consumed // app._live_quantum
         require(ran["K7"] == quanta and sum(ran.values()) == quanta,
                 f"{quanta} quanta pushed, launches {ran}")
@@ -1412,7 +1386,7 @@ def cli_pool_phase(tmp, on) -> dict:
 
     from soundscope_tpu_torch.apps import cli
     from soundscope_tpu_torch.utils import io as sio
-    from soundscope_tpu_torch.utils.metrics import GLOBAL as RT
+    from soundscope_tpu_torch.utils.metrics import GLOBAL as RT, launches
 
     t_phase = time.time()
     rate, secs = 48000, CLI_SECONDS
@@ -1438,7 +1412,7 @@ def cli_pool_phase(tmp, on) -> dict:
         for name, files, extra in [("flac", flacs, ["--metrics", "--profile", prof]),
                                    ("wav", wavs, [])]:
             RT.reset()
-            zero_launches()
+            base = launches()
             out, err = io.StringIO(), io.StringIO()
             t0 = time.time()
             with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
@@ -1446,7 +1420,7 @@ def cli_pool_phase(tmp, on) -> dict:
                                os.path.join(spec, name), *extra])
             wall = time.time() - t0
             rows = json.loads(out.getvalue())
-            ran = launches_now()
+            ran = launches(since=base)
             require(rc == 0 and [r["file"] for r in rows] == files,
                     f"cli {name}: rc {rc}, {len(rows)} rows")
             for r in rows:
@@ -1546,6 +1520,7 @@ def parallel_phases(dev, gen, on, lib) -> dict:
     )
     from soundscope_tpu_torch.parallel.dryrun import free_port, same
     from soundscope_tpu_torch.parallel.seqshard import composed_parts, gather_tracks
+    from soundscope_tpu_torch.utils.metrics import launches
 
     out = {}
     t_phase = time.time()
@@ -1567,20 +1542,20 @@ def parallel_phases(dev, gen, on, lib) -> dict:
         nv = torch.tensor([nv_n], device=dev)
         torch.cuda.synchronize()
 
-        zero_launches()
+        base = launches()
         ref = analyze_batch_native(cfg, x, nv)
         torch.cuda.synchronize()
-        ran = launches_now()
+        ran = launches(since=base)
         require(ran["K3"] == 1 and ran["K7"] == 0, f"yardstick launches {ran}")
         out["yardstick"] = ran
 
         fn = sharded_analyze_fn(cfg, mesh)
         xs, nvs = global_batch(mesh, x, nv)
         require(xs.data_ptr() == x.data_ptr(), "global_batch copied a world of one")
-        zero_launches()
+        base = launches()
         res1 = fn(xs, nvs)
         torch.cuda.synchronize()
-        ran = launches_now()
+        ran = launches(since=base)
         require(ran["K7"] == 1 and sum(ran.values()) == 1,
                 f"seq 1 should launch K7 once and nothing else: {ran}")
         out["seq1"] = ran
@@ -1589,10 +1564,10 @@ def parallel_phases(dev, gen, on, lib) -> dict:
               f"launches {ran}; largest delta to the yardstick (K3 {out['yardstick']}): "
               + ", ".join(f"{k} {v:.3e}" for k, v in d1.items()) + f" {on}")
 
-        zero_launches()
+        base = launches()
         sums4, tp4, sp4 = composed_parts(cfg, x, nv, SHARDS)
         torch.cuda.synchronize()
-        ran = launches_now()
+        ran = launches(since=base)
         require(ran["K7"] == 1 + 2 * (SHARDS - 1) and sum(ran.values()) == ran["K7"],
                 f"the {SHARDS}-shard composition should launch K7 {1 + 2 * (SHARDS - 1)} "
                 f"times and nothing else: {ran}")
@@ -1689,10 +1664,10 @@ def parallel_phases(dev, gen, on, lib) -> dict:
         cfg_lib, x_lib, nv_lib, res_lib = lib
         tracks = x_lib.view(nv_lib.shape[0], 2, x_lib.shape[-1])
         xb, nvb = global_batch(mesh, tracks, nv_lib)
-        zero_launches()
+        base = launches()
         got = gather_tracks(mesh, analyze_batch_native(cfg_lib, xb, nvb))
         torch.cuda.synchronize()
-        ran = launches_now()
+        ran = launches(since=base)
         require(ran["K5"] == 1 and ran["K6"] == 1 and sum(ran.values()) == 2,
                 f"the data axis should launch K5 and K6 once each: {ran}")
         out["data"] = ran
@@ -1790,13 +1765,14 @@ def library_scan_phase(scan_ms: float, on) -> None:
     import re
 
     from soundscope_tpu_torch.tools import library_scan_bench
+    from soundscope_tpu_torch.utils.metrics import launches
 
     t0 = time.time()
-    zero_launches()
+    base = launches()
     out, err = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = library_scan_bench.main([])
-    ran = launches_now()
+    ran = launches(since=base)
     lines = out.getvalue().strip().splitlines()
     for e in err.getvalue().strip().splitlines():
         print(f"phase library bench: {e}")
@@ -1829,14 +1805,15 @@ def e2e_scan_phase(pool: dict, on) -> None:
     this corpus mixes kinds of file)."""
     from soundscope_tpu_torch.apps.cli import FLUSH_AT
     from soundscope_tpu_torch.tools import e2e_scan_bench
+    from soundscope_tpu_torch.utils.metrics import launches
 
     t0 = time.time()
     with tempfile.TemporaryDirectory() as tmp:
-        zero_launches()
+        base = launches()
         out, err = io.StringIO(), io.StringIO()
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             rc = e2e_scan_bench.main([str(E2E_TRACKS), str(E2E_SECONDS), "--keep", tmp])
-        ran = launches_now()
+        ran = launches(since=base)
         files = [f for f in os.listdir(tmp) if f.startswith("track")]
     lines = out.getvalue().strip().splitlines()
     for e in err.getvalue().strip().splitlines():
@@ -1989,6 +1966,7 @@ def main() -> int:
     from soundscope_tpu_torch.ops.biquad import make_block_filter
     from soundscope_tpu_torch.ops.kweight import channel_weights, kweight_cascade_ss
     from soundscope_tpu_torch.utils.io import write_wav
+    from soundscope_tpu_torch.utils.metrics import launches
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2061,14 +2039,13 @@ def main() -> int:
 
     # 4. the main path at full size
     cfg = MeterConfig(channels=2, rate=RATE, max_blocks=0)
-    K1.LAUNCHES = 0
-    K2.LAUNCHES = 0
+    base = launches()
     res = analyze_batch_native(cfg, x_bench, nv_bench)
     mid, side = K2.stft_pooled_frames(x_bench, RATE)
     torch.cuda.synchronize()
-    launches = {"K1": K1.LAUNCHES, "K2": K2.LAUNCHES}
-    require(launches["K1"] >= 1 and launches["K2"] >= 1,
-            f"main path did not launch every kernel: {launches}")
+    launched = launches(since=base)
+    require(launched["K1"] >= 1 and launched["K2"] >= 1,
+            f"main path did not launch every kernel: {launched}")
     nw = n_bench // 2048 - 7
     require(res.integrated_lufs.shape == (TRACKS,) and res.true_peak.shape == (TRACKS, 2),
             "engine output shapes")
@@ -2079,7 +2056,7 @@ def main() -> int:
                     ("shortterm", res.shortterm[valid_st]), ("mid_db", mid),
                     ("side_db", side)]:
         require(bool(torch.isfinite(v).all()), f"main path output {name} not finite")
-    print(f"phase main: {TRACKS} x {n_bench / RATE:.3f} s at {RATE} Hz, launches {launches}, "
+    print(f"phase main: {TRACKS} x {n_bench / RATE:.3f} s at {RATE} Hz, launches {launched}, "
           f"integrated [{float(res.integrated_lufs.min()):.3f}, "
           f"{float(res.integrated_lufs.max()):.3f}] LUFS, all outputs finite")
 
@@ -2119,8 +2096,7 @@ def main() -> int:
                 x = torch.randn((2, secs * RATE), generator=g) * 0.05
             files.append(os.path.join(tmp, name + ".wav"))
             wav(files[-1], x.numpy(), RATE, bits=32)
-        K1.LAUNCHES = 0
-        K2.LAUNCHES = 0
+        base = launches()
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
             rc = cli.main(["analyze", *files, "--json", "--spectrogram",
@@ -2131,9 +2107,10 @@ def main() -> int:
             for k in ("integrated_lufs", "lra_lu", "true_peak", "spectrogram"):
                 require(r.get(k) is not None, f"cli row {r['file']} lacks {k}")
         require(abs(rows[0]["integrated_lufs"] + 23.0) < 0.1, "cli tone loudness")
-        require(K1.LAUNCHES >= 1 and K2.LAUNCHES >= 1,
-                f"cli launches K1 {K1.LAUNCHES} K2 {K2.LAUNCHES}")
-        print(f"phase cli: {len(rows)} rows, launches K1 {K1.LAUNCHES} K2 {K2.LAUNCHES}, "
+        ran = launches(since=base)
+        require(ran["K1"] >= 1 and ran["K2"] >= 1,
+                f"cli launches K1 {ran['K1']} K2 {ran['K2']}")
+        print(f"phase cli: {len(rows)} rows, launches K1 {ran['K1']} K2 {ran['K2']}, "
               f"integrated {[r['integrated_lufs'] for r in rows]}")
 
     # 6. timings at the bench shape (kernel, plain, kernel)
@@ -2265,12 +2242,6 @@ def main() -> int:
                         ("shortterm", res.shortterm[ok])]:
             require(bool(torch.isfinite(v).all()), f"{what}: {name} not finite")
 
-    def counts():
-        return {**IIR.LAUNCHES, "K6": K6.LAUNCHES}
-
-    def zero_counts():
-        IIR.LAUNCHES.update(K3=0, K4=0, K5=0)
-        K6.LAUNCHES = 0
 
     def agree(what, r_gpu, r_cpu):
         for f, rtol, atol in [("integrated_lufs", 0, 2e-3), ("lra", 0, 2e-3),
@@ -2284,10 +2255,10 @@ def main() -> int:
     path_launches = {}
     cfg_lib = MeterConfig(channels=2, rate=48000, max_blocks=0)
     require(rows_plan(LIB_N, LIB_TRACKS, 2, 48000, 128) == ("chain", True), "library plan")
-    zero_counts()
+    base = launches()
     res_lib = analyze_batch_native(cfg_lib, x_lib, nv_lib)
     torch.cuda.synchronize()
-    path_launches["library"] = counts()
+    path_launches["library"] = launches(since=base)
     require(path_launches["library"]["K5"] >= 1 and path_launches["library"]["K6"] >= 1,
             f"library scan did not launch K5 and K6: {path_launches['library']}")
     require_finite("library scan", res_lib, (LIB_TRACKS,), 2)
@@ -2303,10 +2274,10 @@ def main() -> int:
     tone = (10 ** (-23 / 20) * np.sin(2 * np.pi * 997.0 * t)).astype(np.float32)
     track = np.stack([tone, tone])
     require(rows_plan(NPAD, 1, 2, 48000, 128) == ("fused", False), "single-file plan")
-    zero_counts()
+    base = launches()
     res_one = analyze_array(track, cfg, device=dev)
     torch.cuda.synchronize()
-    path_launches["single"] = counts()
+    path_launches["single"] = launches(since=base)
     require(path_launches["single"]["K3"] >= 1,
             f"single file did not launch K3: {path_launches['single']}")
     require_finite("single file", res_one, (), 2)
@@ -2326,10 +2297,10 @@ def main() -> int:
     cfg_51 = MeterConfig(channels=6, rate=192000, max_blocks=0)
     surround = x_51[0, :, :NV_51].cpu().numpy()
     require(rows_plan(NPAD, 1, 6, 192000, 128) == ("prefix", False), "5.1 plan")
-    zero_counts()
+    base = launches()
     res_51 = analyze_array(surround, cfg_51, device=dev)
     torch.cuda.synchronize()
-    path_launches["5.1"] = counts()
+    path_launches["5.1"] = launches(since=base)
     require(path_launches["5.1"]["K4"] >= 1,
             f"5.1 at 192 kHz did not launch K4: {path_launches['5.1']}")
     require_finite("5.1 at 192 kHz", res_51, (), 6)
@@ -2482,9 +2453,9 @@ def main() -> int:
     k7_ms, k7_plain_ms = st["k7_tick"][:2]
     rows = [
         ("K1 kweight_energy_tp_chunked", "iir_chunked.cu", "pallas_iir_chunked.py:383",
-         launches["K1"], k1_err, k1_ms, k1_plain_ms),
+         launched["K1"], k1_err, k1_ms, k1_plain_ms),
         ("K2 stft_pooled_frames", "stft_pooled.cu", "pallas_stft.py:364",
-         launches["K2"], k2_err, k2_ms, k2_plain_ms),
+         launched["K2"], k2_err, k2_ms, k2_plain_ms),
         ("K3 kweight_energy_tp_prefix", "iir_rows.cu", "pallas_iir.py:577",
          path_launches["single"]["K3"], errs["K3"], k3_ms, k3_plain_ms),
         ("K4 kweight_energy_prefix", "iir_rows.cu", "pallas_iir.py:500",

@@ -36,7 +36,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from soundscope_tpu_torch import __version__
-from soundscope_tpu_torch.core.device import default_device
+from soundscope_tpu_torch.core.device import default_device, upload
 from soundscope_tpu_torch.utils import io as sio
 from soundscope_tpu_torch.utils.metrics import GLOBAL as RT
 
@@ -61,8 +61,6 @@ def _export_path(dir_: str, title: str, suffix: str, used: dict) -> str:
 
 def _analyze_bucket(key, items, results, dev, spectrogram_dir=None,
                     timeline_dir=None, used_names=None) -> None:
-    import torch
-
     from soundscope_tpu_torch.core.config import MeterConfig
     from soundscope_tpu_torch.models.engine import analyze_batch_native
     from soundscope_tpu_torch.ops.stft import spectrogram_batch
@@ -75,16 +73,16 @@ def _analyze_bucket(key, items, results, dev, spectrogram_dir=None,
     for i, (_, d) in enumerate(items):
         xs[i, :, : d.samples.shape[1]] = d.samples
         nv[i] = d.samples.shape[1]
-    with RT.measure("analyze", float(nv.sum()) / rate):
-        x4 = torch.from_numpy(xs).to(dev).reshape(len(items), ch, npad // 128, 128)
-        res = analyze_batch_native(cfg, x4, torch.from_numpy(nv).to(dev))
+    with RT.span("analyze", float(nv.sum()) / rate):
+        x4 = upload(xs, dev).reshape(len(items), ch, npad // 128, 128)
+        res = analyze_batch_native(cfg, x4, upload(nv, dev))
         tp = res.true_peak.cpu().numpy()
         sp = res.sample_peak.cpu().numpy()
         integ = res.integrated_lufs.cpu().numpy()
         lra = res.lra.cpu().numpy()
     specs = None
     if spectrogram_dir is not None:
-        with RT.measure("spectrogram", float(nv.sum()) / rate):
+        with RT.span("spectrogram", float(nv.sum()) / rate):
             specs = spectrogram_batch(x4, nv, rate)
     for i, (p, d) in enumerate(items):
         with np.errstate(divide="ignore"):
@@ -140,7 +138,7 @@ def _analyze_paths(paths: list[str], dev, spectrogram_dir: str | None = None,
 
     def decode_one(p):
         try:
-            with RT.measure("decode", 0.0):
+            with RT.span("decode", 0.0):
                 d = sio.decode_file(p)
             RT.add_audio("decode", d.duration)
             return d

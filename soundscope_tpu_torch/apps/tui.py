@@ -261,7 +261,7 @@ class App:
         mid, side = self.audio_file.mid, self.audio_file.side
         rate = self.audio_file.rate
         if frames >= FFT_SIZE and frames <= len(mid):
-            with RT.measure("fft", 2 * FFT_SIZE / rate):
+            with RT.span("fft", 2 * FFT_SIZE / rate):
                 self.fft_mid = self.file_analyzer.get_fft(
                     mid[frames - FFT_SIZE: frames], gain_db=self.fft_gain_db
                 )
@@ -274,7 +274,7 @@ class App:
         # reference skips until a full 16384-sample window exists
         # (lufs_left_bound != 0, tui.rs:1530)
         if lo > 0:
-            with RT.measure("lufs_push", FFT_SIZE / 2 / rate):
+            with RT.span("lufs_push", FFT_SIZE / 2 / rate):
                 self.file_analyzer.add_samples(inter[lo:hi])
                 st = self.file_analyzer.get_shortterm_lufs()
             self.lufs = self.lufs[1:] + [st if np.isfinite(st) else -100.0]
@@ -313,8 +313,9 @@ class App:
                     behind -= q
                     pushed = True
             if pushed:
-                # q interleaved pseudo-stereo samples = q/2 audio frames
-                with RT.measure("live_frame", q / 2 / 44100.0):
+                # q interleaved pseudo-stereo samples = q/2 audio frames,
+                # at the capture device's rate
+                with RT.span("live_frame", q / 2 / self.live.cfg.rate):
                     f = self.live.frame()
                 self.live_stats = f
                 xs = self.live.spectrum_chart_x
@@ -678,12 +679,18 @@ class App:
 
     def _draw_metrics(self, scr: Screen):
         """Top-right cadence/RT readout (rebuild-only observability;
-        SURVEY.md §5 — the reference has none)."""
+        SURVEY.md §5 — the reference has none): the RT factor of each span
+        that credits audio, then the median ms of each that credits none
+        (`live.push`, `array.pad`, ...)."""
         tm = self.tick_monitor
         parts = [f"tick {tm.mean_ms:.1f}ms"]
-        for name, s in sorted(RT.report().items()):
-            if s["rt_factor"] is not None:
+        spans = sorted(RT.report().items())
+        for name, s in spans:
+            if name != "counters" and s["rt_factor"] is not None:
                 parts.append(f"{name} {s['rt_factor']:g}x")
+        for name, s in spans:
+            if name != "counters" and s["rt_factor"] is None and s["median_ms"] is not None:
+                parts.append(f"{name} {s['median_ms']:g}ms")
         text = " | ".join(parts)
         scr.put_str(max(scr.width - len(text) - 1, 0), 0, text,
                     self.theme.highlight, self.theme.background, True)

@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from soundscope_tpu_torch.utils.metrics import GLOBAL
+
 
 def default_device(device=None) -> torch.device:
     """`device` as a torch.device; None means CUDA. Raises RuntimeError
@@ -29,16 +31,21 @@ def default_device(device=None) -> torch.device:
 
 
 def upload(a, device) -> torch.Tensor:
-    """A host array or tensor on `device`; a copy from the host to a CUDA
-    device does not wait for the stream."""
-    t = torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray) else a
+    """A tensor, or a host array (anything NumPy takes), on `device`; a copy
+    from the host to a CUDA device does not wait for the stream, and counts
+    in the registry's `h2d.copies` and `h2d.bytes`."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
     dev = torch.device(device)
-    return t.to(dev, non_blocking=dev.type == "cuda" and t.device.type == "cpu")
+    if dev.type != "cuda" or t.device.type != "cpu":
+        return t.to(dev)
+    GLOBAL.count("h2d.copies")
+    GLOBAL.count("h2d.bytes", t.numel() * t.element_size())
+    return t.to(dev, non_blocking=True)
 
 
 def as_float32(samples, device) -> torch.Tensor:
     """Samples (a NumPy array or a tensor) as float32 on `device`; a tensor
     already there is not copied."""
     if isinstance(samples, torch.Tensor):
-        return samples.to(device=device, dtype=torch.float32)
-    return torch.from_numpy(np.array(samples, np.float32)).to(device)
+        return upload(samples.to(torch.float32), device)
+    return upload(np.array(samples, np.float32), device)

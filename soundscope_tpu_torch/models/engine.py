@@ -44,6 +44,7 @@ from soundscope_tpu_torch.ops.iir_chunked import (
 from soundscope_tpu_torch.ops.kweight import channel_weights, kweight_cascade_ss
 from soundscope_tpu_torch.ops.truepeak import true_peak_masked
 from soundscope_tpu_torch.ops.truepeak_stream import true_peak_stream
+from soundscope_tpu_torch.utils.metrics import GLOBAL as RT
 
 # rows at and above which the 3D/2D energy takes K5's chain
 CHAIN_MIN_ROWS = 1024
@@ -160,67 +161,84 @@ def _finish(cfg: MeterConfig, sums: torch.Tensor, n_valid: torch.Tensor,
 
 
 def analyze_batch_native(cfg: MeterConfig, samples: torch.Tensor,
-                         n_valid: torch.Tensor) -> AnalysisResult:
+                         n_valid) -> AnalysisResult:
     """Batched whole-file analysis on samples' device.
 
     samples: float32 (b, ch, N/128, 128) frames view, (b, ch, N), or rows
     (b*ch, N) with ch = cfg.channels. n_valid: (b,) valid lengths.
+
+    Spans (utils/metrics): `engine.analyze_batch` over the call, and in it
+    `engine.plan` (lengths, weights, filter, route), `engine.energy` (K1,
+    K3, K4, K5 or the plain filter), `engine.peaks` (K6 or the masked max,
+    where the energy kernel does not take the peaks) and `engine.tail`
+    (sub-block sums, then gating, timelines and LRA).
     """
+    with RT.span("engine.analyze_batch"):
+        return _analyze_batch(cfg, samples, n_valid)
+
+
+def _analyze_batch(cfg: MeterConfig, samples: torch.Tensor, n_valid) -> AnalysisResult:
     dev = samples.device
     h = cfg.subblock
-    n_valid = torch.as_tensor(n_valid, device=dev).to(torch.int64)
-    weights = channel_weights(cfg.channels)
+    with RT.span("engine.plan"):
+        n_valid = upload(n_valid, dev).to(torch.int64)
+        weights = channel_weights(cfg.channels)
+        w = tuple(float(v) for v in weights)
+        filt = make_block_filter(kweight_cascade_ss(cfg.rate), cfg.block, dev)
+        if samples.ndim == 4:
+            b, ch, nc, _ = samples.shape
+            n = nc * 128
+            span = step_length(n, h)
+        else:
+            if samples.ndim == 2:
+                ch = cfg.channels
+                b, n = samples.shape[0] // ch, samples.shape[1]
+            else:
+                b, ch, n = samples.shape
+            route, k6 = rows_plan(n, b, ch, cfg.rate, cfg.block)
 
     if samples.ndim == 4:
-        b, ch, nc, _ = samples.shape
-        n = nc * 128
-        span = step_length(n, h)
-        filt = make_block_filter(kweight_cascade_ss(cfg.rate), cfg.block, dev)
-        step_sums, tp, sp = kweight_energy_tp_chunked(
-            filt, samples, n_valid, tuple(float(v) for v in weights),
-            cfg.rate, h)
-        sums = subblock_sums_from_steps(
-            step_sums, h, span, n).reshape(b, ch, -1).sum(dim=1)
-        return _finish(cfg, sums, n_valid, tp.reshape(b, ch), sp.reshape(b, ch))
+        with RT.span("engine.energy"):
+            step_sums, tp, sp = kweight_energy_tp_chunked(filt, samples, n_valid, w,
+                                                          cfg.rate, h)
+        with RT.span("engine.tail"):
+            sums = subblock_sums_from_steps(
+                step_sums, h, span, n).reshape(b, ch, -1).sum(dim=1)
+            return _finish(cfg, sums, n_valid, tp.reshape(b, ch), sp.reshape(b, ch))
 
-    if samples.ndim == 2:
-        ch = cfg.channels
-        b, n = samples.shape[0] // ch, samples.shape[1]
-    else:
-        b, ch, n = samples.shape
-    w = tuple(float(v) for v in weights)
-    filt = make_block_filter(kweight_cascade_ss(cfg.rate), cfg.block, dev)
-    route, k6 = rows_plan(n, b, ch, cfg.rate, cfg.block)
     tp = sp = None
-    if route == "plain":
-        s3 = samples.reshape(b, ch, n)
-        y, _ = block_iir(filt, s3, s3.new_zeros((b, ch, 4)))
-        y = torch.where(torch.arange(n, device=dev) < n_valid[:, None, None], y, 0.0)
-        sums = L.subblock_sums(L.weighted_square(y, upload(weights, dev)), h)
-    else:
-        g = z_group(cfg)
-        if route == "fused":
+    g = z_group(cfg)
+    with RT.span("engine.energy"):
+        if route == "plain":
+            s3 = samples.reshape(b, ch, n)
+            y, _ = block_iir(filt, s3, s3.new_zeros((b, ch, 4)))
+            y = torch.where(torch.arange(n, device=dev) < n_valid[:, None, None], y, 0.0)
+            z = L.weighted_square(y, upload(weights, dev))
+        elif route == "fused":
             z, tp, sp = IIR.kweight_energy_tp_prefix(filt, samples, n_valid, w,
                                                      cfg.rate, g)
         elif route == "prefix":
             z = IIR.kweight_energy_prefix(filt, samples, n_valid, w, g)
         else:
             z = IIR.kweight_energy_chain(filt, samples, n_valid, w, g)
-        sums = _sums_from_z(z, h, g)
-    if k6:
-        tp, sp = true_peak_stream(samples, n_valid, cfg.rate)
-    elif tp is None:
-        # at factor 1 this is the reference's masked max, without a kernel
-        tp, sp = true_peak_masked(samples.reshape(b, ch, n),
-                                  n_valid[:, None, None], cfg.rate)
-    return _finish(cfg, sums, n_valid, tp.reshape(b, ch), sp.reshape(b, ch))
+    if tp is None:
+        with RT.span("engine.peaks"):
+            if k6:
+                tp, sp = true_peak_stream(samples, n_valid, cfg.rate)
+            else:
+                # at factor 1 this is the reference's masked max, without a kernel
+                tp, sp = true_peak_masked(samples.reshape(b, ch, n),
+                                          n_valid[:, None, None], cfg.rate)
+    with RT.span("engine.tail"):
+        sums = L.subblock_sums(z, h) if route == "plain" else _sums_from_z(z, h, g)
+        return _finish(cfg, sums, n_valid, tp.reshape(b, ch), sp.reshape(b, ch))
 
 
 def analyze_fn(cfg: MeterConfig, samples: torch.Tensor,
                n_valid) -> AnalysisResult:
     """Single-track whole-file analysis: (C, N) or (C, N/128, 128) and a
     valid length -> result without a track axis."""
-    nv = torch.as_tensor(n_valid, device=samples.device).reshape(1)
+    nv = upload(n_valid, samples.device).reshape(1)
     return analyze_batch_native(cfg, samples[None], nv).track(0)
 
 
@@ -245,9 +263,15 @@ def analyze_array(samples: np.ndarray, cfg: MeterConfig,
 
     The track is padded to `pad_bucket` and analysed on the 3D layout, as
     in the reference, so `rows_plan` routes it (K3 for stereo below
-    192 kHz, K4 for 5.1 at 192 kHz)."""
+    192 kHz, K4 for 5.1 at 192 kHz). Spans: `engine.analyze_array`
+    (crediting the track's audio), in it `array.pad` and `array.upload`,
+    then the engine's."""
     ch, n = samples.shape
-    npad = pad_bucket(n)
-    x = np.zeros((ch, npad), np.float32)
-    x[:, :n] = samples
-    return analyze_fn(cfg, torch.from_numpy(x).to(default_device(device)), n)
+    with RT.span("engine.analyze_array", n / cfg.rate):
+        with RT.span("array.pad"):
+            npad = pad_bucket(n)
+            x = np.zeros((ch, npad), np.float32)
+            x[:, :n] = samples
+        with RT.span("array.upload"):
+            xt = upload(x, default_device(device))
+        return analyze_fn(cfg, xt, n)

@@ -32,6 +32,7 @@ from soundscope_tpu_torch.core.state import MeterState, init_meter_state
 from soundscope_tpu_torch.models import meter as M
 from soundscope_tpu_torch.ops.decimate import minmax_decimate
 from soundscope_tpu_torch.ops.spectrum import _bin_plan, spectrum_points
+from soundscope_tpu_torch.utils.metrics import GLOBAL as RT
 
 
 @dataclasses.dataclass
@@ -140,10 +141,11 @@ class LiveAnalyzer:
         self._frame = live_frame(self.cfg)
 
     def push(self, interleaved) -> None:
-        x = as_float32(interleaved, self.device)
-        if x.shape[-1] == 0:
-            return
-        self.state = self._push(self.state, x)
+        with RT.span("live.push"):
+            x = as_float32(interleaved, self.device)
+            if x.shape[-1] == 0:
+                return
+            self.state = self._push(self.state, x)
 
     def frame(self, gain_db: float = 0.0) -> LiveFrame:
         f = self._frame(self.state, gain_db)

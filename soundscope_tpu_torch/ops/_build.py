@@ -24,6 +24,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from soundscope_tpu_torch.utils.metrics import GLOBAL
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD = _PKG.parent / "build" / "soundscope_tpu_torch"
@@ -111,6 +113,7 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
+    GLOBAL.count("kernels.builds")
     tag = os.getpid()
     objs = [out.with_name(f"{s.stem}.{tag}.o") for s in sources()]
     exe = nvcc()
@@ -126,8 +129,12 @@ def build() -> Path:
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernels' shared library."""
-    lib = ctypes.CDLL(str(build()))
+    """Build (at first use) and load the kernels' shared library, in the
+    span `kernels.load`; `kernels.builds` counts the nvcc builds (0 where
+    this exact build exists)."""
+    GLOBAL.count("kernels.builds", 0)
+    with GLOBAL.span("kernels.load"):
+        lib = ctypes.CDLL(str(build()))
     for name, argtypes in _ENTRIES:
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -65,9 +65,7 @@ from soundscope_tpu_torch.core import constants as C
 from soundscope_tpu_torch.ops import iir_tile
 from soundscope_tpu_torch.ops.biquad import BlockFilter, block_iir
 from soundscope_tpu_torch.ops.truepeak import true_peak_masked
-
-# kernel launches (one per call of an entry on CUDA)
-LAUNCHES = {"K3": 0, "K4": 0, "K5": 0, "K7": 0}
+from soundscope_tpu_torch.utils.metrics import GLOBAL
 
 # samples per segment (CTA) of the tile-scan core: K3 as K1's, K4 and K5
 CHAIN_TILE = 4096
@@ -210,7 +208,7 @@ def kweight_energy_tp_prefix(filt: BlockFilter, x: torch.Tensor,
         return kweight_energy_tp_prefix_plain(filt, x, n_valid, weights, rate, group)
     out = _tile_rows(filt, x, n_valid, weights, group, factor, TP_TILE, LOOKBACK,
                      "K3 kweight_energy_tp_prefix")
-    LAUNCHES["K3"] += 1
+    GLOBAL.count("launch.K3")
     return out
 
 
@@ -222,7 +220,7 @@ def kweight_energy_prefix(filt: BlockFilter, x: torch.Tensor,
         return kweight_energy_prefix_plain(filt, x, n_valid, weights, group)
     z, _, _ = _tile_rows(filt, x, n_valid, weights, group, 0, CHAIN_TILE, LOOKBACK,
                          "K4 kweight_energy_prefix")
-    LAUNCHES["K4"] += 1
+    GLOBAL.count("launch.K4")
     return z
 
 
@@ -235,7 +233,7 @@ def kweight_energy_chain(filt: BlockFilter, x: torch.Tensor,
         return kweight_energy_chain_plain(filt, x, n_valid, weights, group)
     z, _, _ = _tile_rows(filt, x, n_valid, weights, group, 0, CHAIN_TILE, 0,
                          "K5 kweight_energy_chain")
-    LAUNCHES["K5"] += 1
+    GLOBAL.count("launch.K5")
     return z
 
 
@@ -315,7 +313,7 @@ def block_iir_stream(filt: BlockFilter, x: torch.Tensor, s0: torch.Tensor):
             ar.ctypes.data, rows, n, T, None if sync is None else sync.data_ptr(),
             y.data_ptr(), s_out.data_ptr(), stream)
     _build.raise_on_error(lib, err, what)
-    LAUNCHES["K7"] += 1
+    GLOBAL.count("launch.K7")
     return y.reshape(*batch, n), s_out.reshape(*batch, 4)
 
 

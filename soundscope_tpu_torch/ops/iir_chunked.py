@@ -66,9 +66,7 @@ from soundscope_tpu_torch.core.device import upload
 from soundscope_tpu_torch.ops import iir_tile
 from soundscope_tpu_torch.ops.biquad import BlockFilter, block_iir
 from soundscope_tpu_torch.ops.truepeak import true_peak_masked
-
-# kernel launches (one per call of kweight_energy_tp_chunked on CUDA)
-LAUNCHES = 0
+from soundscope_tpu_torch.utils.metrics import GLOBAL
 
 
 def step_length(n: int, h: int) -> int:
@@ -138,7 +136,6 @@ def kweight_energy_tp_chunked(filt: BlockFilter, x4: torch.Tensor,
     [..., 1] = the part before the step's 100 ms boundary. Feed to
     `subblock_sums_from_steps` for exact h-sample sub-block sums.
     """
-    global LAUNCHES
     if x4.device.type == "cpu":
         return kweight_energy_tp_chunked_plain(filt, x4, n_valid, weights,
                                                rate, h)
@@ -182,7 +179,7 @@ def kweight_energy_tp_chunked(filt: BlockFilter, x4: torch.Tensor,
             tp_part.data_ptr(), sp_part.data_ptr(), tp.data_ptr(), sp.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on_error(lib, err, "K1 kweight_energy_tp")
-    LAUNCHES += 1
+    GLOBAL.count("launch.K1")
     return step_sums, tp, sp
 
 

@@ -56,14 +56,13 @@ import numpy as np
 import torch
 
 from soundscope_tpu_torch.core import constants as C
+from soundscope_tpu_torch.core.device import upload
 from soundscope_tpu_torch.ops.spectrum import _hann_np
 from soundscope_tpu_torch.ops.stft import HOP, _pooled_gain_plan, stft_midside_display
+from soundscope_tpu_torch.utils.metrics import GLOBAL
 
 WIN = C.DEFAULT_FFT_SIZE
 BANDS = 128
-
-# kernel launches (one per call of stft_pooled_frames on CUDA)
-LAUNCHES = 0
 
 
 def rate_supported(rate: int) -> bool:
@@ -98,7 +97,7 @@ def _consts_np(rate: int):
 
 @functools.lru_cache(maxsize=None)
 def _device_consts(rate: int, device: torch.device):
-    return tuple(torch.from_numpy(a).to(device) for a in _consts_np(rate))
+    return tuple(upload(a, device) for a in _consts_np(rate))
 
 
 def _check(frames: torch.Tensor, rate: int) -> tuple[int, int, int]:
@@ -125,7 +124,6 @@ def stft_pooled_frames_plain(frames: torch.Tensor, rate: int):
 def stft_pooled_frames(frames: torch.Tensor, rate: int):
     """frames: (B, 2, N/128, 128) float32 planar stereo -> (mid_db,
     side_db), each (B, nw, 128) float32 with nw = N // 2048 - 7 (K2)."""
-    global LAUNCHES
     if frames.device.type == "cpu":
         return stft_pooled_frames_plain(frames, rate)
     if frames.device.type != "cuda":
@@ -150,7 +148,7 @@ def stft_pooled_frames(frames: torch.Tensor, rate: int):
             tw.data_ptr(), mid.data_ptr(), side.data_ptr(),
             torch.cuda.current_stream(frames.device).cuda_stream)
     _build.raise_on_error(lib, err, "K2 stft_pooled")
-    LAUNCHES += 1
+    GLOBAL.count("launch.K2")
     return mid, side
 
 

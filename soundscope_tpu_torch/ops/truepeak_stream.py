@@ -34,9 +34,7 @@ from soundscope_tpu_torch.core import constants as C
 from soundscope_tpu_torch.core.device import upload
 from soundscope_tpu_torch.ops import iir_tile
 from soundscope_tpu_torch.ops.truepeak import true_peak_masked
-
-# kernel launches (one per call of true_peak_stream that runs the kernel)
-LAUNCHES = 0
+from soundscope_tpu_torch.utils.metrics import GLOBAL
 
 # samples per segment (CTA of 256 threads)
 TILE = 8192
@@ -73,7 +71,6 @@ def true_peak_stream(x: torch.Tensor, n_valid, rate: int):
     """(true_peak, sample_peak), each of x's leading shape (...,), over the
     first n_valid samples of x (..., N) float32, N % 128 == 0 where the
     rate needs oversampling."""
-    global LAUNCHES
     factor = C.true_peak_factor(rate)
     if x.device.type == "cpu" or factor == 1:
         return true_peak_stream_plain(x, n_valid, rate)
@@ -100,7 +97,7 @@ def true_peak_stream(x: torch.Tensor, n_valid, rate: int):
             part[0].data_ptr(), part[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.raise_on_error(lib, err, "K6 true_peak_stream")
-    LAUNCHES += 1
+    GLOBAL.count("launch.K6")
     return out[0].reshape(batch), out[1].reshape(batch)
 
 

@@ -26,7 +26,7 @@ Integrated loudness from K4's and K5's z goes through the engine's own
 tail (models/engine._sums_from_z, then _finish's gating).
 Budgets (BS.1770-4 and the display's resolution): 0.1 LU integrated,
 0.1 dB true peak, 0.1 dB display spectrum. On the card every route must
-launch its kernels (the wrappers' LAUNCHES counters); on the CPU
+launch its kernels (the registry's launch.K1 ... launch.K7 counters); on the CPU
 (--device cpu) the same routes run the kernels' plain versions. The last
 line of stdout is the report (with --json one JSON object); the exit code
 is 1 when a budget is missed or a kernel did not launch.
@@ -48,12 +48,12 @@ from soundscope_tpu_torch.core.device import default_device
 from soundscope_tpu_torch.models.analyzer import Analyzer
 from soundscope_tpu_torch.models import engine
 from soundscope_tpu_torch.ops import iir as IIR
-from soundscope_tpu_torch.ops import iir_chunked as K1
 from soundscope_tpu_torch.ops import stft_pooled as K2
 from soundscope_tpu_torch.ops import truepeak_stream as K6
 from soundscope_tpu_torch.ops.biquad import make_block_filter
 from soundscope_tpu_torch.ops.kweight import channel_weights, kweight_cascade_ss
 from soundscope_tpu_torch.tools.reference64 import analyze_reference, f64_stft_pooled
+from soundscope_tpu_torch.utils.metrics import launches
 
 SECONDS = 3.0
 FREQS = [997.0, 440.0, 1000.0, 5000.0, 100.0, 12000.0, 2500.0, 16000.0]
@@ -101,11 +101,6 @@ def f64_reference(xs: np.ndarray, rate: int):
         integ[i] = r["integrated"]
         tp[i] = r["true_peak"]
     return integ, tp
-
-
-def launch_counts() -> dict:
-    """The kernel wrappers' launch counters, K1-K7."""
-    return {"K1": K1.LAUNCHES, "K2": K2.LAUNCHES, **IIR.LAUNCHES, "K6": K6.LAUNCHES}
 
 
 def _abs_err(got, want) -> float:
@@ -197,12 +192,12 @@ def sweep(levels: int = 32, rate: int = 48000, device=None,
 
     routes, not_launched = {}, []
     for route, run in _routes(xs, rate, dev):
-        before = launch_counts()
+        before = launches()
         t0 = time.time()
         integ, tp, spec = run()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        ran = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+        ran = {k: v for k, v in launches(since=before).items() if v}
         log(f"route {route}: {time.time() - t0:.2f} s wall, launches {ran}")
         out = {"launches": ran}
         if integ is not None:

@@ -1,64 +1,156 @@
-"""Observability: real-time-factor counters and profiler hooks.
+"""Observability: the port's registry of spans and counters, and profiler
+hooks.
 
-The port's copy of the JAX package's utils/metrics.py: per-op
-wall/audio-time counters (RT factor), a tick-rate monitor for the UI
-loop, and a context manager around torch.profiler that writes a Chrome
-trace (the JAX package's wraps jax.profiler).
+`GLOBAL` (an `RTCounter`) is the one place the port records where its host
+time goes and what it counts:
+
+* `span(name, audio_seconds=0.0)` times a block on the host clock: calls,
+  total wall, audio credited (the real-time factor), the first duration
+  and a window of recent durations for medians. Inside `profile_trace`,
+  while its profiler records, the span also opens
+  `record_function("ss." + name)`, so the range sits on the clock of the
+  device's records in the trace; elsewhere it opens nothing (an idle
+  `record_function` costs about 13 us of host time, the flags' read about
+  0.1 us), and a profiler that another program runs around the port sees
+  no `ss.*` range.
+* `count(name, n=1)` adds to a counter, for the life of the process
+  (`reset()` clears the spans alone): `launch.K1` ... `launch.K7` (one per
+  kernel launch), `h2d.bytes` and `h2d.copies` (core/device.upload),
+  `kernels.builds` (nvcc runs of ops/_build.build).
+* `report()` is what the CLI's `--metrics` prints: per span wall, audio,
+  calls, RT factor (None where no audio is credited), first and median
+  ms; the counters under "counters".
+
+Besides: a tick-rate monitor for the UI loop, and a context manager around
+torch.profiler that writes a Chrome trace (the JAX package's wraps
+jax.profiler).
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import os
+import statistics
 import threading
 import time
 
+import torch.autograd.profiler as _autograd_profiler
+
+# durations kept per span name for its median (the first call is kept apart)
+RECENT = 1024
+
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7")
+
+# set by `profile_trace` alone, around its profiler: only then do spans
+# open profiler ranges
+_in_profile_trace = False
+
+
+@dataclasses.dataclass
+class SpanStats:
+    calls: int = 0
+    wall_s: float = 0.0
+    audio_s: float = 0.0
+    first_s: float | None = None
+    recent: collections.deque = dataclasses.field(
+        default_factory=lambda: collections.deque(maxlen=RECENT))
+
+    def median_s(self) -> float | None:
+        """Median duration of the recent calls after the first, or None."""
+        return statistics.median(self.recent) if self.recent else None
+
 
 class RTCounter:
-    """Tracks audio-seconds processed per wall-second per op."""
+    """Spans (host time, audio-seconds per wall-second) and counters, by
+    name; safe to use from several threads."""
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._stats = collections.defaultdict(lambda: [0.0, 0.0, 0])  # wall, audio, calls
+        self._spans: dict[str, SpanStats] = {}
+        self._counters: collections.Counter = collections.Counter()
 
     @contextlib.contextmanager
-    def measure(self, name: str, audio_seconds: float):
+    def span(self, name: str, audio_seconds: float = 0.0):
         t0 = time.perf_counter()
         try:
-            yield
+            if _in_profile_trace and _autograd_profiler._is_profiler_enabled:
+                with _autograd_profiler.record_function("ss." + name):
+                    yield
+            else:
+                yield
         finally:
             dt = time.perf_counter() - t0
             with self._lock:
-                s = self._stats[name]
-                s[0] += dt
-                s[1] += audio_seconds
-                s[2] += 1
+                s = self._spans.get(name)
+                if s is None:
+                    s = self._spans[name] = SpanStats()
+                if s.first_s is None:
+                    s.first_s = dt
+                else:
+                    s.recent.append(dt)
+                s.calls += 1
+                s.wall_s += dt
+                s.audio_s += audio_seconds
 
     def add_audio(self, name: str, audio_seconds: float):
         """Credit audio-seconds after the fact (for ops whose audio length
         is only known once they finish, e.g. decode)."""
         with self._lock:
-            self._stats[name][1] += audio_seconds
+            self._spans.setdefault(name, SpanStats()).audio_s += audio_seconds
+
+    def count(self, name: str, n: int = 1):
+        with self._lock:
+            self._counters[name] += n
+
+    def counter(self, name: str) -> int:
+        with self._lock:
+            return self._counters.get(name, 0)
+
+    def span_stats(self, name: str) -> SpanStats | None:
+        """A copy of span `name`'s record, or None where it never ran."""
+        with self._lock:
+            s = self._spans.get(name)
+            if s is None or s.calls == 0:
+                return None
+            return dataclasses.replace(s, recent=collections.deque(s.recent, maxlen=RECENT))
 
     def report(self) -> dict:
+        def ms(v):
+            return None if v is None else round(1e3 * v, 4)
+
         with self._lock:
-            return {
+            out = {
                 name: {
-                    "wall_s": round(w, 4),
-                    "audio_s": round(a, 2),
-                    "calls": c,
-                    "rt_factor": round(a / w, 1) if w > 0 else None,
+                    "wall_s": round(s.wall_s, 4),
+                    "audio_s": round(s.audio_s, 2),
+                    "calls": s.calls,
+                    "rt_factor": (round(s.audio_s / s.wall_s, 1)
+                                  if s.wall_s > 0 and s.audio_s > 0 else None),
+                    "first_ms": ms(s.first_s),
+                    "median_ms": ms(s.median_s()),
                 }
-                for name, (w, a, c) in self._stats.items()
+                for name, s in self._spans.items()
             }
+            out["counters"] = dict(sorted(self._counters.items()))
+            return out
 
     def reset(self):
+        """Clear the spans; the counters count over the whole process, so
+        that a count taken before a reset and one after still subtract."""
         with self._lock:
-            self._stats.clear()
+            self._spans.clear()
 
 
 GLOBAL = RTCounter()
+
+
+def launches(since: dict | None = None) -> dict:
+    """Launches of each kernel, K1-K7, so far in this process, or since
+    `since`, an earlier reading of `launches()`."""
+    base = since or {}
+    return {k: GLOBAL.counter("launch." + k) - base.get(k, 0) for k in KERNELS}
 
 
 class TickMonitor:
@@ -91,12 +183,14 @@ def profile_trace(logdir: str):
     """torch.profiler over the enclosed block: host activity, and the CUDA
     device's where there is one, written as a Chrome trace
     (`trace-<pid>.json`, open it in Perfetto or chrome://tracing) into
-    `logdir`. Yields the trace's path. On the card the trace opens with
-    64 one-element padding kernels under the range `PADDING_RANGE`, which
+    `logdir`. Yields the trace's path. The registry's spans appear in it
+    as `ss.<name>` ranges (and in no other profiler's trace). On the card the trace opens with 64
+    one-element padding kernels under the range `PADDING_RANGE`, which
     are not part of the block."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    global _in_profile_trace
     os.makedirs(logdir, exist_ok=True)
     cuda = torch.cuda.is_available()
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
@@ -113,5 +207,9 @@ def profile_trace(logdir: str):
                 for _ in range(64):
                     x.add_(0.0)
                 torch.cuda.synchronize()
-        yield path
+        outer, _in_profile_trace = _in_profile_trace, True
+        try:
+            yield path
+        finally:
+            _in_profile_trace = outer
     prof.export_chrome_trace(path)

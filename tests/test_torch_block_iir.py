@@ -26,6 +26,7 @@ from soundscope_tpu.ops.pallas_iir import block_iir_pallas
 from soundscope_tpu_torch.ops import iir as IIR
 from soundscope_tpu_torch.ops import iir_tile
 from soundscope_tpu_torch.ops.biquad import make_block_filter
+from soundscope_tpu_torch.utils.metrics import launches
 from tests.test_torch_iir_tile import _block_matrix, _refilter, _scan
 
 LENGTHS = [1, 7, 127, 333, 800, 2048, 44100]
@@ -44,9 +45,9 @@ def test_block_iir_zero_matches_pallas_interpret(shape):
     jf = jbq.make_block_filter(kweight_cascade_ss(48000), block=128)
     want = np.asarray(block_iir_pallas(jf, jnp.asarray(x), interpret=True))
     tf = make_block_filter(kweight_cascade_ss(48000), 128)
-    before = dict(IIR.LAUNCHES)
+    before = launches()
     got = IIR.block_iir_zero(tf, torch.from_numpy(x)).numpy()
-    assert IIR.LAUNCHES == before          # a CPU tensor launches nothing
+    assert launches() == before          # a CPU tensor launches nothing
     assert got.shape == want.shape
     assert np.abs(got - want).max() < 2e-5
 

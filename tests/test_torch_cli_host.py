@@ -124,11 +124,15 @@ def test_metrics_and_profile(corpus, tmp_path):
     rep = json.loads(err.strip().splitlines()[-1])["metrics"]
     assert rep["decode"]["calls"] == 2 and rep["decode"]["audio_s"] > 3.4
     assert rep["analyze"]["calls"] == 2 and rep["analyze"]["audio_s"] > 3.4
+    for k in ("engine.analyze_batch", "engine.plan", "engine.energy", "engine.tail"):
+        assert rep[k]["calls"] == 2 and rep[k]["first_ms"] > 0
+    assert rep["counters"].get("h2d.bytes", 0) == 0  # no card, no copies
     traces = list(prof.glob("trace-*.json"))
     assert len(traces) == 1 and str(traces[0]) in err
     events = json.loads(traces[0].read_text())["traceEvents"]
     names = {e.get("name", "") for e in events}
     assert any("aten::" in n for n in names)         # CPU activities only here
+    assert {"ss.engine.analyze_batch", "ss.engine.energy"} <= names
 
 
 def test_themes_subcommand_matches_jax():

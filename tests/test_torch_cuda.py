@@ -38,6 +38,7 @@ from soundscope_tpu_torch.ops import truepeak_stream as K6
 from soundscope_tpu_torch.ops.biquad import make_block_filter
 from soundscope_tpu_torch.ops.kweight import channel_weights, kweight_cascade_ss
 from soundscope_tpu_torch.utils import checkpoint as CK
+from soundscope_tpu_torch.utils.metrics import GLOBAL, launches
 
 pytestmark = pytest.mark.cuda
 
@@ -66,9 +67,9 @@ def test_k1_kernel_matches_plain(cuda, rate, b, ragged):
     x4 = _noise((b, 2, 512, 128), rate).to(cuda)
     nv = torch.tensor([n, n - 700, n // 2][:b] if ragged else [n] * b, device=cuda)
     filt = make_block_filter(kweight_cascade_ss(rate), 128, cuda)
-    before = K1.LAUNCHES
+    before = launches()["K1"]
     got = K1.kweight_energy_tp_chunked(filt, x4, nv, (1.0, 1.0), rate, h)
-    assert K1.LAUNCHES == before + 1
+    assert launches()["K1"] == before + 1
     want = K1.kweight_energy_tp_chunked_plain(filt, x4, nv, (1.0, 1.0), rate, h)
     torch.cuda.synchronize()
     span = K1.step_length(n, h)
@@ -197,9 +198,9 @@ def test_k1_k5_attributes(cuda):
 @pytest.mark.parametrize("rate", [48000, 44100, 96000])
 def test_k2_kernel_matches_plain(cuda, rate):
     fr = _noise((2, 2, 16 * 40, 128), rate).to(cuda) * 3.0
-    before = K2.LAUNCHES
+    before = launches()["K2"]
     got = K2.stft_pooled_frames(fr, rate)
-    assert K2.LAUNCHES == before + 1
+    assert launches()["K2"] == before + 1
     want = K2.stft_pooled_frames_plain(fr, rate)
     assert got[0].shape == want[0].shape == (2, 33, 128)
     for g, w in zip(got, want):
@@ -303,7 +304,7 @@ def test_rows_energy_kernels_match_plain(cuda, kernel, rate, b, ch, group):
     nv = torch.tensor([n, n - 700, n // 2][:b], device=cuda)
     filt = make_block_filter(kweight_cascade_ss(rate), 128, cuda)
     w = tuple(float(v) for v in channel_weights(ch))
-    before = dict(IIR.LAUNCHES)
+    before = launches()
     if kernel == "K3":
         got = IIR.kweight_energy_tp_prefix(filt, x, nv, w, rate, group)
         want = IIR.kweight_energy_tp_prefix_plain(filt, x, nv, w, rate, group)
@@ -314,7 +315,7 @@ def test_rows_energy_kernels_match_plain(cuda, kernel, rate, b, ch, group):
         got = (IIR.kweight_energy_chain(filt, x.reshape(b * ch, n), nv, w, group),)
         want = (IIR.kweight_energy_chain_plain(filt, x, nv, w, group),)
     torch.cuda.synchronize()
-    assert IIR.LAUNCHES[kernel] == before[kernel] + 1
+    assert launches()[kernel] == before[kernel] + 1
     assert got[0].shape == (b, n // group)
     _energy_close(got[0], want[0], (rate + 5) // 10, group)
     if kernel == "K3":
@@ -366,9 +367,9 @@ def test_kernels_on_nonfinite_input(cuda, kernel):
 def test_k6_kernel_matches_plain(cuda, rate, n):
     x = _noise((3, 2, n), rate).to(cuda)
     nv = torch.tensor([n, n - 333, n // 2], device=cuda)
-    before = K6.LAUNCHES
+    before = launches()["K6"]
     got = K6.true_peak_stream(x, nv, rate)
-    assert K6.LAUNCHES == before + 1
+    assert launches()["K6"] == before + 1
     want = K6.true_peak_stream_plain(x, nv, rate)
     again = K6.true_peak_stream(x, nv, rate)
     torch.cuda.synchronize()
@@ -378,7 +379,7 @@ def test_k6_kernel_matches_plain(cuda, rate, n):
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
     # factor 1 launches nothing
     K6.true_peak_stream(x, nv, 192000)
-    assert K6.LAUNCHES == before + 2
+    assert launches()["K6"] == before + 2
 
 
 def test_k6_on_a_library_slice(cuda):
@@ -423,12 +424,10 @@ def test_rows_plan_routes_launch_their_kernels(cuda, route, rate, b, ch, launche
     x[..., n // 2:] *= 3.0
     nv = torch.full((b,), n)
     nv[1::2] -= 777
-    IIR.LAUNCHES.update(dict.fromkeys(IIR.LAUNCHES, 0))
-    K6.LAUNCHES = 0
+    base = launches()
     rg = analyze_batch_native(cfg, x.to(cuda).reshape(b * ch, n), nv.to(cuda))
     torch.cuda.synchronize()
-    counts = {**IIR.LAUNCHES, "K6": K6.LAUNCHES}
-    assert {k for k, v in counts.items() if v} == launched
+    assert {k for k, v in launches(since=base).items() if v} == launched
     rc = analyze_batch_native(cfg, x[:2], nv[:2])
     np.testing.assert_allclose(rg.integrated_lufs[:2].cpu().numpy(),
                                rc.integrated_lufs.numpy(), rtol=0, atol=2e-3)
@@ -436,6 +435,42 @@ def test_rows_plan_routes_launch_their_kernels(cuda, route, rate, b, ch, launche
                                rtol=2e-6, atol=1e-7)
     np.testing.assert_array_equal(rg.sample_peak[:2].cpu().numpy(),
                                   rc.sample_peak.numpy())
+
+
+def test_h2d_counters_equal_the_bytes_one_call_copies(cuda):
+    """`h2d.bytes` and `h2d.copies` rise by the host tensors one engine
+    call uploads: the K-weighting filter's four tensors, and the valid
+    lengths where they come from the host."""
+    cfg = MeterConfig(channels=2, rate=48000, max_blocks=0)
+    b, n = 4, 64 * 1024
+    x = _noise((b, 2, n), 5).to(cuda)
+    nv = np.full(b, n - 300, np.int64)
+    analyze_batch_native(cfg, x, nv)                 # caches filled
+    filt = make_block_filter(kweight_cascade_ss(cfg.rate), cfg.block)
+    consts = [filt.Tt, filt.Wt, filt.Ot, filt.A_pows]
+    for lengths, extra in ((torch.from_numpy(nv).to(cuda), []), (nv, [nv.nbytes])):
+        bytes0, copies0 = GLOBAL.counter("h2d.bytes"), GLOBAL.counter("h2d.copies")
+        analyze_batch_native(cfg, x, lengths)
+        torch.cuda.synchronize()
+        assert GLOBAL.counter("h2d.bytes") - bytes0 == sum(
+            t.numel() * t.element_size() for t in consts) + sum(extra)
+        assert GLOBAL.counter("h2d.copies") - copies0 == len(consts) + len(extra)
+
+
+def test_library_shaped_calls_count_one_k5_and_one_k6_each(cuda):
+    """A call of library shape (the chain route: at least CHAIN_MIN_ROWS
+    rows) adds one to `launch.K5` and one to `launch.K6`, and nothing to
+    the other kernels."""
+    cfg = MeterConfig(channels=2, rate=48000, max_blocks=0)
+    b, n = 512, 30 * 4096
+    x = _noise((2 * b, n), 11).to(cuda)
+    nv = torch.full((b,), n, device=cuda)
+    assert rows_plan(n, b, 2, cfg.rate, cfg.block) == ("chain", True)
+    base = launches()
+    for i in range(1, 3):
+        analyze_batch_native(cfg, x, nv)
+        assert launches(since=base) == {**dict.fromkeys(base, 0), "K5": i, "K6": i}
+    torch.cuda.synchronize()
 
 
 def test_rows_wrappers_raise_on_what_they_cannot_launch(cuda):
@@ -469,9 +504,9 @@ def test_k7_kernel_matches_plain(cuda, shape):
     s0 = torch.from_numpy(
         (rng.standard_normal((*shape[:-1], 4)) * 0.5).astype(np.float32)).to(cuda)
     filt = make_block_filter(kweight_cascade_ss(48000), 128, cuda)
-    before = IIR.LAUNCHES["K7"]
+    before = launches()["K7"]
     y, s = IIR.block_iir_stream(filt, x, s0)
-    assert IIR.LAUNCHES["K7"] == before + 1
+    assert launches()["K7"] == before + 1
     yp, sp = IIR.block_iir_stream_plain(filt, x, s0)
     torch.cuda.synchronize()
     assert y.shape == x.shape and s.shape == s0.shape
@@ -517,7 +552,7 @@ def test_meter_push_on_card_matches_cpu(cuda, max_blocks):
     step = M.meter_step(cfg)
     sc, sg = init_meter_state(cfg, "cpu"), init_meter_state(cfg, cuda)
     xg = x.to(cuda)
-    before = IIR.LAUNCHES["K7"]
+    before = launches()["K7"]
     pos, sizes, i = 0, [16384, 1000, 333, 4800, 48000], 0
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -527,7 +562,7 @@ def test_meter_push_on_card_matches_cpu(cuda, max_blocks):
             pos, i = pos + size, i + 1
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert IIR.LAUNCHES["K7"] == before + i
+    assert launches()["K7"] == before + i
     pos = 0
     for k in range(i):
         size = min(sizes[k % len(sizes)], x.shape[1] - pos)
@@ -604,11 +639,6 @@ def test_get_waveform_decimates_on_the_card(cuda, monkeypatch):
     np.testing.assert_array_equal(from_host, on_cpu)
 
 
-def _counts_zero():
-    IIR.LAUNCHES.update(dict.fromkeys(IIR.LAUNCHES, 0))
-    K1.LAUNCHES = K2.LAUNCHES = K6.LAUNCHES = 0
-
-
 def test_tui_file_mode_launches_k3_then_k7_per_frame(cuda, tmp_path):
     """The TUI's App on the card (device=None): opening a file runs the
     whole-file engine once (K3), each analysis frame one K7 push."""
@@ -625,17 +655,17 @@ def test_tui_file_mode_launches_k3_then_k7_per_frame(cuda, tmp_path):
               device="cpu")
     try:
         assert app.device.type == "cuda" and app.file_analyzer.device.type == "cuda"
-        _counts_zero()
+        base = launches()
         app.select_audio_file(song)
-        assert IIR.LAUNCHES["K3"] == 1 and app.audio_file is not None
+        assert launches(since=base)["K3"] == 1 and app.audio_file is not None
         cpu.select_audio_file(song)
         np.testing.assert_array_equal(app.file_waveform, cpu.file_waveform)
         assert abs(app.fft_gain_db - cpu.fft_gain_db) < 1e-3
-        _counts_zero()
+        base = launches()
         start = 16384                                  # a full window exists
         for k in range(10):
             app.analyze_audio_file_samples(start + 2 + 2048 * k)
-        assert IIR.LAUNCHES["K7"] == 10
+        assert launches(since=base)["K7"] == 10
         for k in range(10):
             cpu.analyze_audio_file_samples(start + 2 + 2048 * k)
         np.testing.assert_allclose(app.lufs, cpu.lufs, rtol=0, atol=1e-3)
@@ -660,11 +690,11 @@ def test_tui_mic_mode_runs_the_live_pipeline_on_card(cuda, tmp_path):
         t = np.arange(44100 * 2) / 44100
         pseudo = np.zeros(2 * len(t), np.float32)
         pseudo[0::2] = 0.4 * np.sin(2 * np.pi * 700.0 * t)
-        _counts_zero()
+        base = launches()
         app.ring.push(pseudo)
         consumed = app._live_consumed
         app.analyze_microphone_input()
-        assert IIR.LAUNCHES["K7"] == (app._live_consumed - consumed) // 2048 > 0
+        assert launches(since=base)["K7"] == (app._live_consumed - consumed) // 2048 > 0
         peak_x = app.fft_mid[np.argmax(app.fft_mid[:, 1]), 0]
         expect = (np.log10(700) - np.log10(20)) / (np.log10(20000) - np.log10(20)) * 100
         assert abs(peak_x - expect) < 2.0
@@ -686,13 +716,13 @@ def test_cli_analyze_flac_launches_k1_and_k2(cuda, tmp_path):
         files.append(str(tmp_path / f"n{i}.flac"))
         write_flac(files[-1], (rng.standard_normal((2, 48000 * 2)) * 0.1).astype(np.float32),
                    48000)
-    _counts_zero()
+    base = launches()
     out = io.StringIO()
     with redirect_stdout(out):
         rc = cli.main(["analyze", *files, "--json", "--spectrogram", str(tmp_path / "spec")])
     rows = json.loads(out.getvalue())
     assert rc == 0 and [r["file"] for r in rows] == files
-    assert K1.LAUNCHES == 1 and K2.LAUNCHES == 1           # one bucket
+    assert launches(since=base)["K1"] == 1 and launches(since=base)["K2"] == 1   # one bucket
     for r in rows:
         assert r["integrated_lufs"] is not None and np.load(r["spectrogram"])["mid_db"].size
 
@@ -719,7 +749,7 @@ def test_library_scan_bench_on_the_card(cuda, capsys):
 
     from soundscope_tpu_torch.tools import library_scan_bench
 
-    IIR.LAUNCHES.update(dict.fromkeys(IIR.LAUNCHES, 0))
+    base = launches()
     assert library_scan_bench.main(["16", "2", "--repeats", "1"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 1
@@ -728,4 +758,4 @@ def test_library_scan_bench_on_the_card(cuda, capsys):
     assert line["device"] == torch.cuda.get_device_name(cuda)
     for k in ("scan_ms", "rt_factor", "tracks_per_sec"):
         assert np.isfinite(line[k]) and line[k] > 0
-    assert sum(IIR.LAUNCHES.values()) >= 1
+    assert sum(launches(since=base)[k] for k in ("K3", "K4", "K5", "K7")) >= 1

@@ -32,6 +32,7 @@ from soundscope_tpu.ops.pallas_iir_chunked import (
 from soundscope_tpu.ops.truepeak import true_peak_masked as jax_true_peak
 from soundscope_tpu_torch.ops import iir_chunked as K1
 from soundscope_tpu_torch.utils.params import block_filter_from_numpy
+from soundscope_tpu_torch.utils.metrics import launches
 
 CASES = [(48000, 3, "ragged"), (44100, 3, "ragged"), (96000, 2, "full")]
 NC = 512  # n = 65536 samples
@@ -164,6 +165,6 @@ def test_cpu_run_launches_nothing():
     """The launch counter counts kernel launches only: a CPU tensor takes
     the plain version and leaves it unchanged."""
     x, nv, _, tf, w = _inputs(48000, 1, "full")
-    before = K1.LAUNCHES
+    before = launches()["K1"]
     _port(x, nv, tf, w, 48000)
-    assert K1.LAUNCHES == before
+    assert launches()["K1"] == before

@@ -29,6 +29,7 @@ from soundscope_tpu.ops.pallas_iir import (
 )
 from soundscope_tpu_torch.ops import iir as IIR
 from soundscope_tpu_torch.utils.params import block_filter_from_numpy
+from soundscope_tpu_torch.utils.metrics import launches
 
 # 226 blocks of 128 = 2 x 113: the prefix kernels take 2 blocks a grid
 # step, which keeps interpret mode quick, and the track holds 6 sub-blocks
@@ -180,8 +181,8 @@ def test_inputs_rejected_and_cpu_launches_nothing():
             fn(tf, xt.to("meta"), nvt, w)
     with pytest.raises(ValueError):
         IIR.kweight_energy_tp_prefix(tf, xt.to("meta"), nvt, w, 48000)
-    before = dict(IIR.LAUNCHES)
+    before = launches()
     _port("K3", tf, x, nv, w, 32, 48000)
     _port("K4", tf, x, nv, w, 32)
     _port("K5", tf, x, nv, w, 32)
-    assert IIR.LAUNCHES == before
+    assert launches() == before

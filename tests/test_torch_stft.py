@@ -26,6 +26,7 @@ from soundscope_tpu_torch.ops.stft import (
     spectrogram_batch,
     stft_midside_display,
 )
+from soundscope_tpu_torch.utils.metrics import launches
 
 RATES = [48000, 44100]
 
@@ -209,9 +210,9 @@ def test_k2_rejects_what_it_cannot_pool():
         K2.stft_pooled_frames(fr.double(), 48000)
     with pytest.raises(ValueError):
         K2.stft_pooled_frames(fr.to("meta"), 48000)
-    before = K2.LAUNCHES
+    before = launches()["K2"]
     K2.stft_pooled_frames(fr, 48000)
-    assert K2.LAUNCHES == before                    # CPU: plain, no launch
+    assert launches()["K2"] == before                    # CPU: plain, no launch
 
 
 # --- the CUDA kernel's pass structure (csrc/stft_pooled.cu), emulated in

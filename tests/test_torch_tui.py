@@ -17,10 +17,15 @@ import soundscope_tpu.apps.tui as jtui
 import soundscope_tpu_torch.apps.tui as ttui
 from soundscope_tpu_torch.apps import player as player_mod
 from soundscope_tpu_torch.apps import themes as T
+from soundscope_tpu_torch.apps import tui as tui_module
 from soundscope_tpu_torch.apps.player import AudioPlayer
 from soundscope_tpu_torch.apps.render import Screen
 from soundscope_tpu_torch.apps.tui import App, Mode
+from soundscope_tpu_torch.core.config import MeterConfig
+from soundscope_tpu_torch.models.live import LiveAnalyzer
 from soundscope_tpu_torch.utils.io import write_wav
+from soundscope_tpu_torch.utils import metrics as metrics_module
+from soundscope_tpu_torch.utils.metrics import GLOBAL as RT, RTCounter, SpanStats
 from soundscope_tpu_torch.utils.synth import pink_noise, sine, stereo
 
 RATE = 44100
@@ -326,6 +331,29 @@ def test_metrics_readout(tmp_path, song):
     b.handle_key("q")
 
 
+def test_metrics_readout_shows_spans_without_audio_in_ms(tmp_path, monkeypatch):
+    """Spans that credit no audio (live.push, array.pad, array.upload) read
+    as their median ms, after the RT factors of those that do."""
+    reg = RTCounter()
+    monkeypatch.setattr(tui_module, "RT", reg)
+    clock = iter(np.arange(100.0, 101.0, 0.001))
+    with monkeypatch.context() as m:             # each span lasts 1 ms
+        m.setattr(metrics_module.time, "perf_counter", lambda: next(clock))
+        for _ in range(3):
+            with reg.span("live.push"):
+                pass
+        with reg.span("lufs_push", 1.0):
+            pass
+        with reg.span("array.pad"):              # one call: no median yet
+            pass
+    a = App(config_dir=str(tmp_path / "cfg"), device="cpu", show_metrics=True)
+    try:
+        txt = _frame(a, w=120)
+        assert "lufs_push 1000x | live.push 1ms" in txt and "array.pad" not in txt
+    finally:
+        a.handle_key("q")
+
+
 def test_slow_decode_surfaces_popup_then_loads(app, song, monkeypatch):
     real_decode = player_mod.decode_file
 
@@ -356,6 +384,21 @@ def test_mic_mode_runs_the_live_pipeline(app):
     app.analyze_microphone_input()
     assert app.live_stats is not None and app.mic_waveform is not None
     assert "Microphone" in _frame(app)
+
+
+def test_live_frame_credits_audio_at_the_live_analyzers_rate(app):
+    """The metrics readout credits a live frame with the q / 2 frames of a
+    quantum at the live analyzer's own rate."""
+    app.handle_key("m")
+    assert app.live_ready.wait(timeout=120) and app.live_error is None
+    app.live = LiveAnalyzer(MeterConfig(channels=2, rate=48000, max_blocks=0), device="cpu")
+    q = app._live_quantum
+    app.ring.push(np.zeros(q, np.float32))
+    before = RT.span_stats("live_frame") or SpanStats()
+    app.analyze_microphone_input()
+    after = RT.span_stats("live_frame")
+    assert after.calls == before.calls + 1
+    assert after.audio_s - before.audio_s == pytest.approx(q / 2 / 48000)
 
 
 def test_live_pipeline_failure_shows_and_is_not_replaced(app, monkeypatch):
