@@ -2195,7 +2195,8 @@ def main() -> int:
     x_slice, nv_slice = x_lib[:64], nv_lib[:32]         # 32 tracks, full length
     errs = {}
     errs.update(rows_compare(IIR, K6, filt_fn(48000), x_single, nv_single, 48000, 32, ["K3"]))
-    errs.update(rows_compare(IIR, K6, filt_fn(192000), x_51, nv_51, 192000, 32, ["K4"]))
+    errs.update(rows_compare(IIR, K6, filt_fn(192000), x_51, nv_51, 192000, 32,
+                             ["K4", "K5"]))
     lib_errs = rows_compare(IIR, K6, filt_fn(48000), x_slice, nv_slice, 48000, 32,
                             ["K4", "K5", "K6"])
     errs["K5"], errs["K6"] = lib_errs["K5"], lib_errs["K6"]
@@ -2209,8 +2210,10 @@ def main() -> int:
               f"{json.dumps(IIR.rows_attributes(factor, IIR.LOOKBACK))}")
     print(f"k4 attributes (k5_tile, T {IIR.CHAIN_TILE}, look-back {IIR.LOOKBACK}): "
           f"{json.dumps(IIR.rows_attributes(0, IIR.LOOKBACK))}")
-    print(f"k5 attributes (k5_tile, T {IIR.CHAIN_TILE}, look-back 0): "
+    print(f"k5 attributes (k5_tile, row tickets, T {IIR.CHAIN_TILE}, look-back 0): "
           f"{json.dumps(IIR.rows_attributes(0, 0))}")
+    print(f"k5 attributes (k5_tile_tracks, track tickets, T {IIR.CHAIN_TILE}): "
+          f"{json.dumps(IIR.rows_attributes(0, 0, tracks=True))}")
     for factor in (4, 2):
         print(f"k6 attributes (factor {factor}, T {K6.TILE}): "
               f"{json.dumps(K6.kernel_attributes(factor))}")
@@ -2219,6 +2222,8 @@ def main() -> int:
     for what, fn in [
             ("K5 library slice", lambda: (IIR.kweight_energy_chain(
                 filt_fn(48000), x_slice, nv_slice, w2, 32),)),
+            ("K5 5.1 shape (row tickets)", lambda: (IIR.kweight_energy_chain(
+                filt_fn(192000), x_51, nv_51, w6, 32),)),
             ("K3 single-file shape", lambda: IIR.kweight_energy_tp_prefix(
                 filt_fn(48000), x_single, nv_single, w2, 48000, 32)),
             ("K4 5.1 shape", lambda: (IIR.kweight_energy_prefix(
@@ -2360,8 +2365,8 @@ def main() -> int:
           f"(single-file shape {tuple(x_single.shape)}) {on}")
     print(f"timing K4 kernel {k4_ms:.4f} ms plain {k4_plain_ms:.4f} ms "
           f"(5.1 shape {tuple(x_51.shape)}) {on}")
-    print(f"timing K5 (the tile-scan core) {k5_at_k4_ms:.4f} ms at K4's 5.1 shape "
-          f"{tuple(x_51.shape)} {on}")
+    print(f"timing K5 on row tickets (k5_tile + channel_sum) {k5_at_k4_ms:.4f} ms "
+          f"at K4's 5.1 shape {tuple(x_51.shape)} {on}")
     print(f"timing K4 kernel {k4_slice_ms:.4f} ms plain {k4_slice_plain_ms:.4f} ms "
           f"({slice_shape}) {on}")
     print(f"timing K5 kernel {k5_ms:.4f} ms plain {k5_plain_ms:.4f} ms ({slice_shape}) {on}")

@@ -3,7 +3,10 @@
 // bodies on one core: K1 sums steps and runs the FIR, K3 writes group sums
 // and runs the FIR, K4 and K5 write group sums (one kernel, k5_tile, at
 // two look-back depths), K7 writes y and the row's end state from a
-// carried state s0 (tile_loop's S0 mode, below). The true peak K6
+// carried state s0 (tile_loop's S0 mode, below). K5 with one or two
+// weighted channels takes the core's tile, matrices and carry records in a
+// kernel of its own (iir_rows.cu, k5_tile_tracks: tickets of one track's
+// segment of both channels in one tile). The true peak K6
 // (truepeak_stream.cu) walks the same tiles with no scan (tile_walk).
 //
 // Each runs the 4-state recurrence s <- A s + B x, y = C s + D x in the

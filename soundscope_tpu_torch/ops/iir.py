@@ -26,14 +26,21 @@ On the card (csrc/iir_rows.cu) all three run the tile-scan core of
 csrc/iir_tile.cuh (host side ops/iir_tile.py): one launch that reads the
 input once, each segment's entry state taken from the segments before it,
 each thread refiltering 32 samples from shared memory and writing group
-sums (g | 32) per row; a second pass adds the channels in order into z. K3
-(`k3_tile`, segments of TP_TILE) runs K1's polyphase FIR beside them over
-every row; K4 and K5 share `k5_tile` (segments of CHAIN_TILE) over the
-rows of nonzero weight. K3 and K4, which serve a few long rows, take each
-segment's state through a fixed look-back of LOOKBACK segments, which
-shortens a row's chain of waits LOOKBACK + 1 times, and skip the segments
-of a padded bucket that start past n_valid; K5's many rows keep the plain
-chain. See those files for the designs and what bounds them.
+sums (g | 32). K3 (`k3_tile`, segments of TP_TILE) runs K1's polyphase FIR
+beside them over every row; K4 (`k5_tile` with a look-back, segments of
+CHAIN_TILE) runs over the rows of nonzero weight; both write group sums
+per row, and a second pass adds the channels in order into z. K3 and K4,
+which serve a few long rows, take each segment's state through a fixed
+look-back of LOOKBACK segments, which shortens a row's chain of waits
+LOOKBACK + 1 times. K5's many tracks keep the plain chain
+(`k5_tile_tracks`) on tickets of one track's segment: `chain_segment`
+samples of every channel of nonzero weight in one tile of CHAIN_TILE
+samples, the channels' group sums added in order in the tile and z
+written by the same launch. All three skip the segments of a padded track
+that start past n_valid; K5 with more than TRACK_CHANNELS weighted
+channels runs K4's kernel without the look-back, a ticket per row, and
+neither skips nor writes z itself. See those files for the designs and
+what bounds them.
 
 K7 (csrc/block_iir.cu, replaces `block_iir_pallas`, pallas_call at
 ``pallas_iir.py:67``) filters with carried state: `block_iir_stream(filt,
@@ -70,6 +77,24 @@ from soundscope_tpu_torch.utils.metrics import GLOBAL
 # samples per segment (CTA) of the tile-scan core: K3 as K1's, K4 and K5
 CHAIN_TILE = 4096
 TP_TILE = 8192
+
+# weighted channels up to which K5's ticket is one track's segment of all
+# of them (csrc/iir_rows.cu): with more, each channel's segment and the
+# track's chain shorten, and rows of their own were faster on the H100
+# (200 5.1 tracks of 30 s at 192 kHz: 13.1 ms on rows, 19.1 on tracks)
+TRACK_CHANNELS = 2
+
+
+def chain_segment(channels: int) -> int:
+    """Samples of each of `channels` weighted channels (1 to
+    TRACK_CHANNELS) in one of K5's track tickets: one tile of CHAIN_TILE
+    samples split between them, a power of two and whole warps (CTAs of
+    CHAIN_TILE / 32 threads) each: 4,096 mono, 2,048 stereo."""
+    if not 1 <= channels <= TRACK_CHANNELS:
+        raise ValueError(f"K5's track tickets take 1 to {TRACK_CHANNELS} weighted channels, "
+                         f"got {channels}")
+    return CHAIN_TILE // channels
+
 
 # look-back depth of K3, K4 and K7 (csrc/iir_tile.cuh: TILE_LOOKBACK): a
 # row of N samples is N / (T (LOOKBACK + 1)) hops of its chain, 62 for K3
@@ -150,17 +175,21 @@ def _launchable(filt: BlockFilter, x, n_valid, weights, what: str):
     return b, ch, n, nv
 
 
-def _tile_rows(filt, x, n_valid, weights, group, factor, T, lookback, what):
-    """Launch ss_kweight_energy_rows on the tile-scan core: factor 0 is K4
-    or K5 (the rows of nonzero weight), 2 or 4 is K3 (every row). Returns
-    (z, tp, sp); tp and sp are None for factor 0."""
-    b, ch, n, nv = _launchable(filt, x, n_valid, weights, what)
+def _tile_checks(filt, group, ch, what):
     if group <= 0 or iir_tile.TS % group:
         raise ValueError(f"{what}: group {group} does not divide {iir_tile.TS}")
     if not iir_tile.modal_filter(filt):
         raise ValueError(f"{what} is built for the 4-state K-weighting cascade")
     if ch > iir_tile.MAX_CH:
         raise ValueError(f"{what} takes at most {iir_tile.MAX_CH} channels, got {ch}")
+
+
+def _tile_rows(filt, x, n_valid, weights, group, factor, T, lookback, what):
+    """Launch ss_kweight_energy_rows on the tile-scan core: factor 0 is K4
+    or K5 (the rows of nonzero weight), 2 or 4 is K3 (every row). Returns
+    (z, tp, sp); tp and sp are None for factor 0."""
+    b, ch, n, nv = _launchable(filt, x, n_valid, weights, what)
+    _tile_checks(filt, group, ch, what)
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     consts = iir_tile.tile_constants(filt, T)
@@ -227,26 +256,69 @@ def kweight_energy_prefix(filt: BlockFilter, x: torch.Tensor,
 def kweight_energy_chain(filt: BlockFilter, x: torch.Tensor,
                          n_valid: torch.Tensor, weights, group: int = 1):
     """Energy (K5; JAX: kweight_energy_pallas) on the tile-scan core with
-    the plain chain: K4's kernel at look-back depth 0. Same arguments and
-    result as `kweight_energy_prefix`."""
+    the plain chain: z (b, N/group), as `kweight_energy_prefix`. On CUDA
+    the group divides 32. With 1 to TRACK_CHANNELS channels of nonzero
+    weight a ticket is one track's segment of them (`chain_segment`
+    samples each): one launch after the reset of its records, the segments
+    past n_valid skipped and added, on the device, to the counter
+    `k5.segments_skipped`; otherwise K4's kernel without the look-back, a
+    ticket per row, and `channel_sum`. Either way the tickets times their
+    channels are added to `k5.segments`."""
+    what = "K5 kweight_energy_chain"
     if x.device.type == "cpu":
         return kweight_energy_chain_plain(filt, x, n_valid, weights, group)
-    z, _, _ = _tile_rows(filt, x, n_valid, weights, group, 0, CHAIN_TILE, 0,
-                         "K5 kweight_energy_chain")
+    w = np.asarray([float(v) for v in weights], np.float32)
+    na = int(np.count_nonzero(w))
+    if not 1 <= na <= TRACK_CHANNELS:
+        b, _, n = rows_shape(x, weights)
+        z, _, _ = _tile_rows(filt, x, n_valid, weights, group, 0, CHAIN_TILE, 0, what)
+        GLOBAL.count("launch.K5")
+        GLOBAL.count("k5.segments", b * na * -(-n // CHAIN_TILE))
+        return z
+    b, ch, n, nv = _launchable(filt, x, n_valid, weights, what)
+    _tile_checks(filt, group, ch, what)
+    dev = x.device
+    Tc = chain_segment(na)
+    nseg = -(-n // Tc)
+    consts = iir_tile.tile_constants(filt, Tc)
+    sync = iir_tile.sync_buffer(b * na, nseg, dev, iir_tile.INCL_WORDS)
+    z = torch.empty((b, n // group), dtype=torch.float32, device=dev)
+
+    from soundscope_tpu_torch.ops import _build
+
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.ss_kweight_energy_chain(
+            x.data_ptr(), nv.data_ptr(), consts.ctypes.data,
+            iir_tile.lane_powers(filt).ctypes.data, w.ctypes.data, b, ch, n,
+            group, CHAIN_TILE, Tc, sync.data_ptr(), z.data_ptr(),
+            _skipped_cell(dev).data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _build.raise_on_error(lib, err, what)
     GLOBAL.count("launch.K5")
+    GLOBAL.count("k5.segments", b * nseg * na)
     return z
+
+
+@functools.lru_cache(maxsize=None)
+def _skipped_cell(device: torch.device) -> torch.Tensor:
+    """The device's count of K5's channel segments past n_valid, which the
+    registry reads as `k5.segments_skipped`."""
+    cell = torch.zeros(1, dtype=torch.int64, device=device)
+    GLOBAL.count_on_device("k5.segments_skipped", cell)
+    return cell
 
 
 ATTRIBUTE_KEYS = ("registers", "static_smem", "dynamic_smem", "local_bytes",
                   "threads", "blocks_per_sm")
 
 
-def rows_attributes(factor: int, lookback: int) -> dict:
+def rows_attributes(factor: int, lookback: int, tracks: bool = False) -> dict:
     """Resources of K3's kernel (factor 2 or 4, at TP_TILE) or of K4's
-    (factor 0, lookback LOOKBACK) or K5's (factor 0, lookback 0), at
-    CHAIN_TILE, as the CUDA runtime reports them (needs a card): registers
-    per thread, static and dynamic shared memory bytes per CTA, local
-    (spill) bytes per thread, threads per CTA and CTAs per SM."""
+    (factor 0, lookback LOOKBACK) or K5's (factor 0, lookback 0: on track
+    tickets if `tracks`, else on row tickets), at CHAIN_TILE, as the CUDA
+    runtime reports them (needs a card): registers per thread, static and
+    dynamic shared memory bytes per CTA, local (spill) bytes per thread,
+    threads per CTA and CTAs per SM."""
     import ctypes
 
     from soundscope_tpu_torch.ops import _build
@@ -255,7 +327,8 @@ def rows_attributes(factor: int, lookback: int) -> dict:
     out = (ctypes.c_int * 6)()
     T = TP_TILE if factor else CHAIN_TILE
     _build.raise_on_error(
-        lib, lib.ss_kweight_energy_rows_attrs(factor, T, lookback, out), "rows attributes")
+        lib, lib.ss_kweight_energy_rows_attrs(factor, T, lookback, int(tracks), out),
+        "rows attributes")
     return dict(zip(ATTRIBUTE_KEYS, out))
 
 

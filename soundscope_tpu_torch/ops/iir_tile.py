@@ -25,10 +25,13 @@ block-diagonal.
 `sync_buffer` is the launch's scratch of carry records: int32, all bits
 set, word 0 the ticket counter (tickets count from -1 + 1 = 0), then two
 float4s per (row, segment): the segment's aggregate G and its inclusive
-end state.
+end state; K5 keeps the inclusive state alone, one float4 per (track,
+segment, channel).
 
 `power_blocks` is A^m as its two 2x2 blocks: K7 takes a row's end state
-from its last sub-span of m samples.
+from its last sub-span of m samples. `lane_powers` is A^(32 l) for each
+lane l, the same way: K5 steps a warp's entry state to each lane's with
+it.
 
 `fir_taps` is the true-peak FIR as K1, K3 and K6 read it.
 """
@@ -47,6 +50,7 @@ MAX_WARPS = 16          # warps per CTA: T <= 16384
 MAX_CH = 16             # channels a kernel takes
 LB_BITS = 6             # look-back powers A^(T 2^b): depths D <= 32 < 2^LB_BITS
 RECORD_WORDS = 8        # int32 words of carry record per (row, segment)
+INCL_WORDS = 4          # K5's record per (track, segment, channel): incl alone
 TILE_FLOATS = (16 + 4 + 4 + 1 + TS * 4 + 5 * 16 + MAX_WARPS * 16 + 16
                + LB_BITS * 8)
 
@@ -117,6 +121,26 @@ def power_blocks(filt, m: int) -> np.ndarray:
     return cache[key]
 
 
+@functools.lru_cache(maxsize=64)
+def _lane_powers(a_bytes: bytes) -> np.ndarray:
+    A = np.frombuffer(a_bytes).reshape(4, 4)
+    out = np.stack([_blocks(np.linalg.matrix_power(A, TS * lane))
+                    for lane in range(TS)]).astype(np.float32)
+    out.setflags(write=False)
+    return out
+
+
+def lane_powers(filt) -> np.ndarray:
+    """A^(32 l) for the lanes l = 0 .. 31 (float64, rounded once to
+    float32) as their two 2x2 diagonal blocks, (32, 8): K5's step from a
+    warp's entry state to each lane's. Cached (also on the filter's host
+    cache), read-only."""
+    cache = filt._consts
+    if "lanes" not in cache:
+        cache["lanes"] = _lane_powers(np.ascontiguousarray(filt.A, np.float64).tobytes())
+    return cache["lanes"]
+
+
 def unpack(consts: np.ndarray) -> dict:
     """The named parts of a TileConsts array (for the tests' emulation)."""
     sizes = [("A", (4, 4)), ("B", (4,)), ("C", (4,)), ("D", ()), ("W", (TS, 4)),
@@ -130,10 +154,10 @@ def unpack(consts: np.ndarray) -> dict:
     return out
 
 
-def sync_buffer(rows: int, nseg: int, device) -> torch.Tensor:
-    """Ticket counter and carry records of one launch, all bits set."""
-    return torch.full((4 + RECORD_WORDS * rows * nseg,), -1, dtype=torch.int32,
-                      device=device)
+def sync_buffer(rows: int, nseg: int, device, words: int = RECORD_WORDS) -> torch.Tensor:
+    """Ticket counter and carry records of one launch, all bits set:
+    `words` per (row, segment)."""
+    return torch.full((4 + words * rows * nseg,), -1, dtype=torch.int32, device=device)
 
 
 @functools.lru_cache(maxsize=None)

@@ -16,7 +16,12 @@ time goes and what it counts:
 * `count(name, n=1)` adds to a counter, for the life of the process
   (`reset()` clears the spans alone): `launch.K1` ... `launch.K7` (one per
   kernel launch), `h2d.bytes` and `h2d.copies` (core/device.upload),
-  `kernels.builds` (nvcc runs of ops/_build.build).
+  `kernels.builds` (nvcc runs of ops/_build.build), `k5.segments` (K5's
+  tickets times its weighted channels, from the shapes).
+* `count_on_device(name, cell)` adds a one-element integer tensor that
+  kernels add to (`k5.segments_skipped`, K5's channel segments past
+  n_valid, one add per CTA): the host reads it, and waits for the device,
+  only when the counter is read or reported.
 * `report()` is what the CLI's `--metrics` prints: per span wall, audio,
   calls, RT factor (None where no audio is credited), first and median
   ms; the counters under "counters".
@@ -70,6 +75,7 @@ class RTCounter:
         self._lock = threading.Lock()
         self._spans: dict[str, SpanStats] = {}
         self._counters: collections.Counter = collections.Counter()
+        self._cells: dict[str, list] = {}
 
     @contextlib.contextmanager
     def span(self, name: str, audio_seconds: float = 0.0):
@@ -104,9 +110,17 @@ class RTCounter:
         with self._lock:
             self._counters[name] += n
 
+    def count_on_device(self, name: str, cell):
+        """Add the device integer `cell` (a one-element tensor) to counter
+        `name`, read when the counter is."""
+        with self._lock:
+            self._cells.setdefault(name, []).append(cell)
+
     def counter(self, name: str) -> int:
         with self._lock:
-            return self._counters.get(name, 0)
+            n = self._counters.get(name, 0)
+            cells = list(self._cells.get(name, ()))
+        return n + sum(int(c.item()) for c in cells)
 
     def span_stats(self, name: str) -> SpanStats | None:
         """A copy of span `name`'s record, or None where it never ran."""
@@ -121,6 +135,9 @@ class RTCounter:
             return None if v is None else round(1e3 * v, 4)
 
         with self._lock:
+            cells = list(self._cells)
+        on_device = {name: self.counter(name) for name in cells}
+        with self._lock:
             out = {
                 name: {
                     "wall_s": round(s.wall_s, 4),
@@ -133,7 +150,7 @@ class RTCounter:
                 }
                 for name, s in self._spans.items()
             }
-            out["counters"] = dict(sorted(self._counters.items()))
+            out["counters"] = dict(sorted({**self._counters, **on_device}.items()))
             return out
 
     def reset(self):

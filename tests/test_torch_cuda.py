@@ -190,7 +190,8 @@ def test_k1_k5_attributes(cuda):
                            (IIR.rows_attributes(4, IIR.LOOKBACK), IIR.TP_TILE // 32),
                            (IIR.rows_attributes(2, IIR.LOOKBACK), IIR.TP_TILE // 32),
                            (IIR.rows_attributes(0, IIR.LOOKBACK), IIR.CHAIN_TILE // 32),
-                           (IIR.rows_attributes(0, 0), IIR.CHAIN_TILE // 32)):
+                           (IIR.rows_attributes(0, 0), IIR.CHAIN_TILE // 32),
+                           (IIR.rows_attributes(0, 0, tracks=True), IIR.CHAIN_TILE // 32)):
         assert attrs["threads"] == threads and attrs["blocks_per_sm"] >= 1
         assert attrs["dynamic_smem"] == 2 * 16 * 8 * (threads + 1)
 
@@ -293,17 +294,55 @@ def _energy_close(got, want, h, group):
     np.testing.assert_allclose(sums[0], sums[1], rtol=3e-4, atol=2e-5)
 
 
-@pytest.mark.parametrize("kernel,rate,b,ch,group", [
-    ("K3", 48000, 3, 2, 32), ("K3", 44100, 3, 2, 1), ("K3", 96000, 2, 6, 32),
-    ("K4", 48000, 3, 2, 32), ("K4", 44100, 3, 2, 1), ("K4", 192000, 1, 6, 32),
-    ("K5", 48000, 3, 2, 32), ("K5", 44100, 3, 2, 1), ("K5", 192000, 2, 6, 32),
+def _k5_lengths(kind, b, n, seg):
+    """n_valid of K5's cases, from its channel segment of `seg` samples:
+    inside a segment, on segment boundaries, or many tracks of assorted
+    lengths; every case leaves whole segments of padding, and "padded"
+    has a track with no valid sample."""
+    if kind == "inside":
+        return [n, 20 * seg + 777, 3 * seg + 5]
+    if kind == "boundary":
+        return [n // seg * seg, 20 * seg, seg]
+    if kind == "padded":
+        return [n // 2, 2 * seg + 1, 0]
+    if kind == "many":
+        return [n - (997 * i) % (n // 2) for i in range(b)]
+    return [n, n - 700, n // 2][:b]
+
+
+def _rows_case(kernel, rate, b, ch, group, lengths=None):
+    name = f"{kernel}-{rate}-{b}-{ch}-{group}"
+    return pytest.param(kernel, rate, b, ch, group, lengths,
+                        id=name if lengths is None else f"{name}-{lengths}")
+
+
+# K5: mono (track tickets of 4,096), stereo (2,048) at 48 and 44.1 kHz,
+# 5.1 at 192 kHz (5 weighted channels: a ticket per row); n_valid inside a
+# segment, on its boundaries, a track with none; 3 tracks (fewer than the
+# card's resident tickets) and 2,000 (more)
+@pytest.mark.parametrize("kernel,rate,b,ch,group,lengths", [
+    _rows_case("K3", 48000, 3, 2, 32), _rows_case("K3", 44100, 3, 2, 1),
+    _rows_case("K3", 96000, 2, 6, 32),
+    _rows_case("K4", 48000, 3, 2, 32), _rows_case("K4", 44100, 3, 2, 1),
+    _rows_case("K4", 192000, 1, 6, 32),
+    _rows_case("K5", 48000, 3, 2, 32), _rows_case("K5", 44100, 3, 2, 1),
+    _rows_case("K5", 192000, 2, 6, 32),
+    _rows_case("K5", 48000, 3, 1, 32, "inside"), _rows_case("K5", 48000, 3, 2, 32, "inside"),
+    _rows_case("K5", 48000, 3, 2, 32, "boundary"), _rows_case("K5", 48000, 3, 2, 32, "padded"),
+    _rows_case("K5", 44100, 3, 2, 1, "inside"), _rows_case("K5", 44100, 3, 2, 1, "padded"),
+    _rows_case("K5", 192000, 3, 6, 32, "boundary"), _rows_case("K5", 192000, 3, 6, 32, "padded"),
+    _rows_case("K5", 48000, 2000, 2, 32, "many"),
 ])
-def test_rows_energy_kernels_match_plain(cuda, kernel, rate, b, ch, group):
+def test_rows_energy_kernels_match_plain(cuda, kernel, rate, b, ch, group, lengths):
     n = 1129 * 128 if kernel == "K5" else 512 * 128
+    if lengths == "many":
+        n = 16 * 2048 + 128
     x = _noise((b, ch, n), rate + b).to(cuda)
-    nv = torch.tensor([n, n - 700, n // 2][:b], device=cuda)
-    filt = make_block_filter(kweight_cascade_ss(rate), 128, cuda)
     w = tuple(float(v) for v in channel_weights(ch))
+    na = sum(1 for v in w if v != 0.0)
+    seg = IIR.chain_segment(na) if na <= IIR.TRACK_CHANNELS else IIR.CHAIN_TILE
+    nv = torch.tensor(_k5_lengths(lengths, b, n, seg), device=cuda)
+    filt = make_block_filter(kweight_cascade_ss(rate), 128, cuda)
     before = launches()
     if kernel == "K3":
         got = IIR.kweight_energy_tp_prefix(filt, x, nv, w, rate, group)
@@ -318,10 +357,51 @@ def test_rows_energy_kernels_match_plain(cuda, kernel, rate, b, ch, group):
     assert launches()[kernel] == before[kernel] + 1
     assert got[0].shape == (b, n // group)
     _energy_close(got[0], want[0], (rate + 5) // 10, group)
+    if kernel == "K5":                    # nothing past n_valid, zeros exactly
+        past = torch.arange(n // group, device=cuda)[None] * group >= nv[:, None]
+        assert bool((got[0][past] == 0).all())
     if kernel == "K3":
         np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(),
                                    rtol=2e-6, atol=1e-7)
         np.testing.assert_array_equal(got[2].cpu().numpy(), want[2].cpu().numpy())
+
+
+def test_k5_is_one_k5_tile_launch_and_counts_the_segments_it_skips(cuda):
+    """On the chain route K5 is one launch of `k5_tile` and no
+    `channel_sum` (the profiler's device records), and a ragged batch adds
+    its channel segments that start at or past n_valid to
+    `k5.segments_skipped`, and every ticket's channels to `k5.segments`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = MeterConfig(channels=2, rate=48000, max_blocks=0)
+    b, n = 512, 30 * 4096
+    assert rows_plan(n, b, 2, cfg.rate, cfg.block) == ("chain", True)
+    x = _noise((2 * b, n), 13).to(cuda)
+    seg = IIR.chain_segment(2)
+    lengths = [n - (i % 7) * 3 * seg - (i % 5) * 100 for i in range(b)]
+    nv = torch.tensor(lengths, device=cuda)
+    nseg = -(-n // seg)
+    skipped = 2 * sum(nseg - -(-v // seg) for v in lengths)
+    assert skipped > 0
+    analyze_batch_native(cfg, x, nv)                  # builds, fills the caches
+    torch.cuda.synchronize()
+    s0, k0 = GLOBAL.counter("k5.segments_skipped"), GLOBAL.counter("k5.segments")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pad = torch.zeros(1, device=cuda)             # the profiler's first records
+        for _ in range(64):
+            pad.add_(0.0)
+        torch.cuda.synchronize()
+        analyze_batch_native(cfg, x, nv)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("k5_tile" in m for m in names) == 1
+    assert not any("channel_sum" in m for m in names)
+    assert sum("k6_tile" in m for m in names) == 1
+    assert GLOBAL.counter("k5.segments_skipped") - s0 == skipped
+    assert GLOBAL.counter("k5.segments") - k0 == 2 * b * nseg
+    report = GLOBAL.report()["counters"]
+    assert report["k5.segments_skipped"] >= skipped and report["k5.segments"] >= 2 * b * nseg
 
 
 @pytest.mark.parametrize("kernel,rate,group", [("K3", 48000, 32), ("K3", 44100, 1),

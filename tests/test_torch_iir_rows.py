@@ -28,6 +28,7 @@ from soundscope_tpu.ops.pallas_iir import (
     kweight_energy_tp_pallas_prefix,
 )
 from soundscope_tpu_torch.ops import iir as IIR
+from soundscope_tpu_torch.ops import iir_tile
 from soundscope_tpu_torch.utils.params import block_filter_from_numpy
 from soundscope_tpu_torch.utils.metrics import launches
 
@@ -186,3 +187,25 @@ def test_inputs_rejected_and_cpu_launches_nothing():
     _port("K4", tf, x, nv, w, 32)
     _port("K5", tf, x, nv, w, 32)
     assert launches() == before
+
+
+@pytest.mark.parametrize("channels", range(1, IIR.TRACK_CHANNELS + 1))
+def test_chain_segment_fills_one_tile(channels):
+    """K5's track ticket holds `chain_segment(channels)` samples of each of
+    its one or two weighted channels: whole warps of 32-sample threads, a
+    power of two that divides the tile, both channels within one tile of
+    CHAIN_TILE samples (the shared memory the kernel's double buffer
+    holds)."""
+    T = IIR.CHAIN_TILE
+    seg = IIR.chain_segment(channels)
+    lanes = seg // iir_tile.TS
+    assert seg % (32 * iir_tile.TS) == 0 and lanes & (lanes - 1) == 0
+    assert T % seg == 0 and channels * seg == T
+
+
+def test_chain_segment_refuses_what_no_tile_takes():
+    """More weighted channels take a ticket per row: no segment."""
+    assert [IIR.chain_segment(c) for c in (1, 2)] == [4096, 2048]
+    for channels in (0, *range(IIR.TRACK_CHANNELS + 1, iir_tile.MAX_CH + 1)):
+        with pytest.raises(ValueError):
+            IIR.chain_segment(channels)

@@ -10,8 +10,11 @@ G(t - j), incl(t) = A^T s_in(t) + G(t); D = 0 is the plain chain), each
 thread's entry state A^(32 lane) (A^(1024 w) s_in + E_w) + F_(lane-1) with
 the lane power applied bit by bit, the refilter with A as its two 2x2
 blocks, float32-sized partial sums per thread and the fixed-order step
-(K1) or group and channel (K3, K4, K5) sums. It is held to the JAX Pallas
-kernels in interpret mode and to the XLA chain at the port's pins
+(K1) or group and channel (K3, K4, K5) sums. K5 with one or two
+weighted channels scans each channel's segment of its track tickets
+(`IIR.chain_segment` samples) with the powers of A as their 2x2 blocks
+and each lane's power in one step (`modal`). It is held to the JAX
+Pallas kernels in interpret mode and to the XLA chain at the port's pins
 (tests/test_torch_iir_chunked.py, tests/test_torch_iir_rows.py): sub-block
 sums rtol 3e-4 / atol 2e-5, z per group rtol 1e-3 / atol 1e-6 * max|z|,
 true peak rtol 2e-6 / atol 1e-7, sample peak exact.
@@ -109,10 +112,13 @@ def _scan(k, x, T, D=0, s0=None):
         incl[:, s] = acc @ k["AT"].T + e[:, s]
     v = np.einsum("wij,rsj->rswi", k["AW"][:nw], s_in) + E
     v = np.broadcast_to(v[:, :, :, None, :], F.shape).copy()
-    lane = np.arange(32)
-    for q in range(5):
-        on = ((lane >> q) & 1).astype(bool)
-        v[..., on, :] = v[..., on, :] @ k["KS"][q].T
+    if "LP" in k:                                   # K5: A^(32 lane) in one step
+        v = np.einsum("lij,rswlj->rswli", k["LP"], v)
+    else:
+        lane = np.arange(32)
+        for q in range(5):
+            on = ((lane >> q) & 1).astype(bool)
+            v[..., on, :] = v[..., on, :] @ k["KS"][q].T
     return (v + fex).reshape(rows, nseg, P, 4)
 
 
@@ -129,9 +135,18 @@ def _refilter(k, x, s):
     return y
 
 
-def emulate_tile(filt, x, T, D=0):
+def _modal(M):
+    """M (..., 4, 4) with its two 2x2 diagonal blocks alone."""
+    M = M.copy()
+    M[..., :2, 2:] = 0.0
+    M[..., 2:, :2] = 0.0
+    return M
+
+
+def emulate_tile(filt, x, T, D=0, modal=False):
     """y (rows, n) of the tile-scan core on x (rows, n) float32, look-back
-    depth D."""
+    depth D; modal: the scan's powers of A read as their two 2x2 blocks and
+    each lane's A^(32 lane) taken in one step (K5's track_scan)."""
     rows, n = x.shape
     nseg = -(-n // T)
     xp = np.zeros((rows, nseg * T))
@@ -139,6 +154,10 @@ def emulate_tile(filt, x, T, D=0):
     xs = xp.reshape(rows, nseg, T // TS, TS)
     k = {name: np.asarray(v, np.float64)
          for name, v in iir_tile.unpack(iir_tile.tile_constants(filt, T)).items()}
+    if modal:
+        k.update({name: _modal(k[name]) for name in ("KS", "AW", "AT")})
+        k["LP"] = np.stack([_block_matrix(v)
+                            for v in iir_tile.lane_powers(filt).astype(np.float64)])
     y = _refilter(k, xs, _scan(k, xs, T, D))
     return y.reshape(rows, -1)[:, :n]
 
@@ -187,11 +206,18 @@ def emulate_k1(filt, x, nv, weights, rate, h):
     return steps, tp, sp
 
 
-def emulate_k5(filt, x, nv, weights, group, T=IIR.CHAIN_TILE, D=0):
-    """K5's z (b, n/group): x (b, ch, n) float32; with T = CHAIN_TILE and
-    D = LOOKBACK, K4's. K3's z is the same sum at T = TP_TILE."""
+def emulate_k5(filt, x, nv, weights, group, T=None, D=0):
+    """K5's z (b, n/group): x (b, ch, n) float32; with one or two weighted
+    channels each on segments of IIR.chain_segment samples (track_scan's
+    scan of a channel segment is tile_scan's of a row), else on rows of
+    CHAIN_TILE segments; with T = CHAIN_TILE and D = LOOKBACK, K4's. K3's z
+    is the same sum at T = TP_TILE."""
     b, ch, n = x.shape
-    y = emulate_tile(filt, x.reshape(b * ch, n), T, D).reshape(b, ch, n)
+    na = sum(1 for w in weights if w != 0.0)
+    tracks = T is None and na <= IIR.TRACK_CHANNELS
+    if T is None:
+        T = IIR.chain_segment(na) if tracks else IIR.CHAIN_TILE
+    y = emulate_tile(filt, x.reshape(b * ch, n), T, D, modal=tracks).reshape(b, ch, n)
     valid = np.arange(n)[None] < nv[:, None]
     z = np.zeros((b, n // group))
     for c, w in enumerate(weights):
@@ -264,9 +290,11 @@ def test_k1_algorithm_matches_jax(rate, b, n, nv):
     np.testing.assert_allclose(tp, np.asarray(tpk), rtol=2e-6, atol=1e-7)
 
 
-# rate, b, ch, group: g = 32 and g = 1, 44.1 kHz, 5.1 with the zero-weight
-# LFE, b = 3; N = 28,928 leaves a partial last segment
-K5_CASES = [(48000, 3, 2, 32), (48000, 3, 2, 1), (44100, 3, 2, 1), (48000, 2, 6, 32)]
+# rate, b, ch, group: g = 32 and g = 1, 44.1 kHz (track tickets of 2,048
+# a channel), 5.1 with the zero-weight LFE (rows), mono (4,096), b = 3; N
+# = 28,928 leaves a partial last segment
+K5_CASES = [(48000, 3, 2, 32), (48000, 3, 2, 1), (44100, 3, 2, 1), (48000, 2, 6, 32),
+            (48000, 3, 1, 32)]
 
 
 @pytest.mark.parametrize("rate,b,ch,group", K5_CASES)
@@ -402,6 +430,23 @@ def test_lookback_reproduces_the_recurrence(D):
     np.testing.assert_allclose(emulate_tile(tf, x, T, D), want, rtol=0, atol=2e-6)
 
 
+@pytest.mark.parametrize("channels", [1, 2])
+def test_k5_channel_segments_reproduce_the_recurrence(channels):
+    """K5's scan on the channel segments chain_segment gives (4,096 and
+    2,048 samples: 4 and 2 warps), its powers of A read as their 2x2 blocks
+    and each lane's in one step, is the serial filter, over 9 segments and
+    a partial one."""
+    _, tf = _filters(48000)
+    T = IIR.chain_segment(channels)
+    x = _noise((2, 9 * T + 128), 13)
+    s = np.zeros((2, 4))
+    want = np.empty(x.shape)
+    for i in range(x.shape[1]):
+        want[:, i] = s @ tf.Cv + tf.D * x[:, i]
+        s = s @ tf.A.T + x[:, i, None] * tf.Bv
+    np.testing.assert_allclose(emulate_tile(tf, x, T, modal=True), want, rtol=0, atol=2e-6)
+
+
 @pytest.mark.parametrize("rate", [44100, 48000, 96000, 192000])
 def test_host_matrices_reproduce_the_recurrence(rate):
     """Each float32 matrix of TileConsts is the float64 recurrence rounded
@@ -449,6 +494,22 @@ def test_host_matrices_reproduce_the_recurrence(rate):
     np.testing.assert_allclose(emulate_tile(tf, x, T), want, rtol=0, atol=2e-6)
 
 
+@pytest.mark.parametrize("rate", [44100, 48000, 192000])
+def test_lane_powers_are_the_blocks_of_a_to_32_lane(rate):
+    """K5's lane powers: A^(32 l) for each lane l, float64 rounded once, as
+    the two 2x2 blocks (the rest is rounding noise); cached, read-only."""
+    _, tf = _filters(rate)
+    lp = iir_tile.lane_powers(tf)
+    assert lp.shape == (TS, 8) and lp.dtype == np.float32 and not lp.flags.writeable
+    assert lp is iir_tile.lane_powers(tf)
+    A = np.asarray(tf.A, np.float64)
+    for lane in (0, 1, 5, 31):
+        want = np.linalg.matrix_power(A, TS * lane)
+        np.testing.assert_allclose(_block_matrix(lp[lane].astype(np.float64)), _modal(want),
+                                   rtol=0, atol=1e-7 * max(1.0, np.abs(want).max()))
+        assert np.abs(want - _modal(want)).max() <= 1e-9
+
+
 def test_tile_constants_are_cached_and_read_only():
     _, tf = _filters(48000)
     a = iir_tile.tile_constants(tf, 8192)
@@ -466,6 +527,8 @@ def test_sync_buffer_layout():
     # the ticket counter, then two float4s (G, incl) per (row, segment)
     assert buf.dtype == torch.int32 and buf.numel() == 4 + 8 * 15
     assert bool((buf == -1).all())
+    # K5: the inclusive state alone per (track, segment, channel)
+    assert iir_tile.sync_buffer(3, 5, "cpu", iir_tile.INCL_WORDS).numel() == 4 + 4 * 15
     assert K1.tile_length(128) == 8192 and K1.tile_length(16384) == 16384
     assert K1.step_length(65536, 19200) == 16384        # the 192 kHz case above
     with pytest.raises(ValueError):
