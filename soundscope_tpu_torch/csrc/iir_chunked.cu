@@ -13,11 +13,11 @@
 //               previous segment's CTA (look-back depth 0: its 64 rows at
 //               the bench shape keep the card busy); each thread refilters its 32
 //               samples from shared memory, sums z = w_ch * y^2 masked at
-//               n_valid in float32 into (step total, energy before the
-//               step's boundary) and runs the polyphase FIR over the same
-//               samples with the halo of KP-1 raw samples before them; the
-//               steps' sums are added in a fixed order in float64, the
-//               partial peaks per (row, segment) reduced by
+//               n_valid in float32 into (energy before the step's
+//               boundary, energy from it on) and runs the polyphase FIR
+//               over the same samples with the halo of KP-1 raw samples
+//               before them; the steps' sums are added in a fixed order
+//               in float64, the partial peaks per (row, segment) reduced by
 //   peaks_pass  one warp per row: deterministic max, tp = max(tp, sp).
 //
 // Bound on the H100: operations. The function needs 104 float32
@@ -43,14 +43,16 @@
 
 namespace {
 
-// Refilters the thread's 32 samples (tile row r) from s; sums z into tot
-// and, for samples before `cut`, into left; the FIR (F > 1, TileFir) over
-// the samples with the halo from row r - 1. MASK: some sample is at or
+// Refilters the thread's 32 samples (tile row r) from s; sums z into left
+// for samples before `cut` and into right for the others, each part a sum
+// of its own samples (a part taken as the total less the other would lose a
+// quiet part beside a loud one to cancellation); the FIR (F > 1, TileFir)
+// over the samples with the halo from row r - 1. MASK: some sample is at or
 // past n_valid, or the step's boundary cuts the span.
 template <int F, int KP, bool MASK>
 __device__ __forceinline__ void k1_span(const TileArgs& a, const float4* tile, int r,
                                         V4 s, int64_t g0, int64_t nv, float w, int cut,
-                                        float& tot, float& left, float& tp, float& sp) {
+                                        float& left, float& right, float& tp, float& sp) {
   const TileConsts& k = a.k;
   TileFir<F, KP> fir;
   fir.halo(tile, r);
@@ -66,17 +68,21 @@ __device__ __forceinline__ void k1_span(const TileArgs& a, const float4* tile, i
       const float z = w * (y * y);
       const bool valid = !MASK || g0 + j < nv;
       if (MASK) {
-        tot += valid ? z : 0.f;
         left += (valid && j < cut) ? z : 0.f;
+        right += (valid && j >= cut) ? z : 0.f;
         sp = fmax_nan(sp, valid ? fabsf(x) : 0.f);
       } else {
-        tot += z;
+        right += z;
         sp = fmax_nan(sp, fabsf(x));
       }
       fir.push(a, x, valid, tp);
     }
   }
-  if (!MASK && cut >= TS) left = tot;
+  // unmasked, the span lies wholly on one side of the boundary
+  if (!MASK && cut >= TS) {
+    left = right;
+    right = 0.f;
+  }
 }
 
 // CTAs of at most PMAX threads: 256 (T = 8192, the steps of 48 and 44.1
@@ -96,7 +102,7 @@ k1_tile(const __grid_constant__ TileArgs a) {
     const int64_t nv = __ldg(a.n_valid + ts.row / a.ch);
     const float w = a.weights[ts.row % a.ch];
 
-    float tot = 0.f, left = 0.f, tp = 0.f, sp = 0.f;
+    float left = 0.f, right = 0.f, tp = 0.f, sp = 0.f;
     if (g0 < a.n && g0 < nv) {
       const int64_t s0 = (g0 / a.L) * a.L;
       int64_t bound = ((s0 + a.h - 1) / a.h) * a.h;
@@ -104,9 +110,10 @@ k1_tile(const __grid_constant__ TileArgs a) {
       const int64_t c = bound - g0;
       const int cut = c <= 0 ? 0 : (c >= TS ? TS : (int)c);
       if (g0 + TS <= nv && (cut == 0 || cut == TS))
-        k1_span<F, KP, false>(a, tile, tid + 1, ts.entry, g0, nv, w, cut, tot, left, tp, sp);
+        k1_span<F, KP, false>(a, tile, tid + 1, ts.entry, g0, nv, w, cut, left, right, tp,
+                              sp);
       else
-        k1_span<F, KP, true>(a, tile, tid + 1, ts.entry, g0, nv, w, cut, tot, left, tp, sp);
+        k1_span<F, KP, true>(a, tile, tid + 1, ts.entry, g0, nv, w, cut, left, right, tp, sp);
     }
 
     // step sums: float32 per thread, then float64 over the step's threads
@@ -114,34 +121,34 @@ k1_tile(const __grid_constant__ TileArgs a) {
     // order)
     const int per_step = (int)(a.L / TS);          // threads per step, >= 4
     const int gs = per_step < 32 ? per_step : 32;
-    double dt = tot, dl = left;
+    double dl = left, dr = right;
     for (int o = 1; o < gs; o *= 2) {
-      dt += __shfl_xor_sync(0xffffffffu, dt, o);
       dl += __shfl_xor_sync(0xffffffffu, dl, o);
+      dr += __shfl_xor_sync(0xffffffffu, dr, o);
     }
     const int64_t step0 = ts.start / a.L;
     float* out = a.step_sums + ts.row * a.nsteps * 2;
     if (per_step <= 32) {
       const int64_t step = step0 + tid / per_step;
       if (lane % gs == 0 && step < a.nsteps) {
-        out[2 * step] = (float)dt;
-        out[2 * step + 1] = (float)dl;
+        out[2 * step] = (float)dl;
+        out[2 * step + 1] = (float)dr;
       }
     } else if (lane == 0) {
-      red[warp][0] = dt;
-      red[warp][1] = dl;
+      red[warp][0] = dl;
+      red[warp][1] = dr;
     }
     warp_peaks(tp, sp, pk);
     __syncthreads();
     const int wps = per_step / 32;                 // warps per step, if > 0
     if (per_step > 32 && tid < P / per_step && step0 + tid < a.nsteps) {
-      double st = 0.0, sl = 0.0;
+      double sl = 0.0, sr = 0.0;
       for (int v = tid * wps; v < (tid + 1) * wps; ++v) {
-        st += red[v][0];
-        sl += red[v][1];
+        sl += red[v][0];
+        sr += red[v][1];
       }
-      out[2 * (step0 + tid)] = (float)st;
-      out[2 * (step0 + tid) + 1] = (float)sl;
+      out[2 * (step0 + tid)] = (float)sl;
+      out[2 * (step0 + tid) + 1] = (float)sr;
     }
     cta_peaks(pk, a.tp_part + ts.row * a.nseg + ts.seg,
               a.sp_part + ts.row * a.nseg + ts.seg);

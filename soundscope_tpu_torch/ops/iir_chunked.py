@@ -7,10 +7,13 @@ signals of n = N samples each. Per row the kernel computes
 
 * the K-weighted signal y (the 4-state cascade in its modal realisation),
 * z = w_ch * y^2, masked at n_valid, summed per STEP of L samples into the
-  step total and the energy before the step's one 100 ms boundary
+  energy before the step's one 100 ms boundary and the energy from it on
   (L = 128 * 2^k <= h, so a step holds at most one boundary, which is what
   `subblock_sums_from_steps` needs to rebuild exact sub-block sums at any
-  rate, 44.1 kHz included),
+  rate, 44.1 kHz included). Each part is a sum of its own samples: the
+  JAX kernel's (total, left) leaves the right part to `total - left`,
+  which loses a quiet part beside a loud one to float32 cancellation,
+  a few hundredths of an LU near the -70 LUFS gate,
 * the 49-tap polyphase true peak (4x below 96 kHz, 2x below 192 kHz) and
   the sample peak, both masked at n_valid; true peak = max(tp, sp).
 
@@ -27,8 +30,8 @@ side: ops/iir_tile.py) in one launch that reads the input once:
   publishes its own (segments are handed out by a ticket counter, so the
   chain cannot deadlock and every run gives the same bits);
 * each thread then refilters its 32 samples from its entry state, sums
-  z = w_ch * y^2 masked at n_valid in float32 into the step total and the
-  part before the step's boundary, and runs the FIR over the same samples
+  z = w_ch * y^2 masked at n_valid in float32 into the parts before and
+  from the step's boundary, and runs the FIR over the same samples
   and the halo; the step sums are added in a fixed order in float64, the
   partial peaks per (row, segment) reduced by a deterministic max pass.
 
@@ -116,7 +119,8 @@ def kweight_energy_tp_chunked_plain(filt: BlockFilter, x4: torch.Tensor,
     before = torch.arange(L, device=dev)[None] < torch.from_numpy(
         bound - start).to(dev)[:, None]                               # (nsteps, L)
     step_sums = torch.stack(
-        [z.sum(dim=-1), torch.where(before, z, 0.0).sum(dim=-1)], dim=-1)
+        [torch.where(before, z, 0.0).sum(dim=-1), torch.where(before, 0.0, z).sum(dim=-1)],
+        dim=-1)
     tp, sp = true_peak_masked(x, nv[:, None], rate)
     return step_sums, tp, sp
 
@@ -132,16 +136,19 @@ def kweight_energy_tp_chunked(filt: BlockFilter, x4: torch.Tensor,
 
     Returns (step_sums (rows, nsteps, 2), tp (rows,), sp (rows,)) with
     rows = b*ch and steps of `step_length(N, h)` samples:
-    step_sums[..., 0] = the step's total channel-weighted K-energy,
-    [..., 1] = the part before the step's 100 ms boundary. Feed to
-    `subblock_sums_from_steps` for exact h-sample sub-block sums.
+    step_sums[..., 0] = the step's channel-weighted K-energy before its
+    100 ms boundary, [..., 1] = the part from the boundary on. Feed to
+    `subblock_sums_from_steps` for exact h-sample sub-block sums. Counts
+    `k1.steps` (rows * steps) in the registry, on either device.
     """
+    b, ch, n = _check(x4, weights)
+    if x4.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"K1 runs on CPU or CUDA tensors, not {x4.device}")
+    L = step_length(n, h)
+    GLOBAL.count("k1.steps", b * ch * (n // L))
     if x4.device.type == "cpu":
         return kweight_energy_tp_chunked_plain(filt, x4, n_valid, weights,
                                                rate, h)
-    if x4.device.type != "cuda":
-        raise ValueError(f"K1 runs on CPU or CUDA tensors, not {x4.device}")
-    b, ch, n = _check(x4, weights)
     if not x4.is_contiguous():
         raise ValueError("x4 must be contiguous")
     if not iir_tile.modal_filter(filt):
@@ -149,7 +156,6 @@ def kweight_energy_tp_chunked(filt: BlockFilter, x4: torch.Tensor,
     if ch > iir_tile.MAX_CH:
         raise ValueError(f"K1 takes at most {iir_tile.MAX_CH} channels, got {ch}")
     rows = b * ch
-    L = step_length(n, h)
     T = tile_length(L)
     nseg = -(-n // T)
     factor = C.true_peak_factor(rate)
@@ -236,16 +242,18 @@ def subblock_sums_from_steps(step_sums: torch.Tensor, h: int, span: int,
                              n: int) -> torch.Tensor:
     """Exact h-sample sub-block sums from K1's per-step outputs.
 
-    step_sums: (..., nsteps, 2) with [..., 0] = step total, [..., 1] =
-    energy before the step's unique 100 ms boundary (requires h >= span).
-    Returns (..., n // h). The running sum over steps is taken in float64,
-    so long tracks lose no precision to the cumulative-sum differences.
+    step_sums: (..., nsteps, 2) with [..., 0] = energy before the step's
+    unique 100 ms boundary, [..., 1] = energy from it on (requires h >=
+    span). Returns (..., n // h) float32: the right part of a sub-block's
+    first step, the whole steps after it and the left part of its last
+    step, added in float64 and rounded to float32 once. No part is a
+    difference of float32 sums, and the running sum over steps is taken in
+    float64, so long tracks lose no precision to its differences.
     """
-    full = step_sums[..., 0]
-    left = step_sums[..., 1]
+    left = step_sums[..., 0].double()
+    right = step_sums[..., 1].double()
     s0, s1, s1c, ok = _device_plan(n, h, span, step_sums.device)
-    cum = torch.cumsum(full.double(), dim=-1)
+    cum = torch.cumsum(left + right, dim=-1)
     cum = torch.cat([torch.zeros_like(cum[..., :1]), cum], dim=-1)
-    right0 = full[..., s0] - left[..., s0]
-    mid = (cum[..., s1] - cum[..., s0 + 1]).float()
-    return right0 + mid + left[..., s1c] * ok
+    mid = cum[..., s1] - cum[..., s0 + 1]
+    return (right[..., s0] + mid + left[..., s1c] * ok).float()

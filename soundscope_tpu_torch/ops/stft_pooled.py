@@ -123,12 +123,21 @@ def stft_pooled_frames_plain(frames: torch.Tensor, rate: int):
 
 def stft_pooled_frames(frames: torch.Tensor, rate: int):
     """frames: (B, 2, N/128, 128) float32 planar stereo -> (mid_db,
-    side_db), each (B, nw, 128) float32 with nw = N // 2048 - 7 (K2)."""
+    side_db), each (B, nw, 128) float32 with nw = N // 2048 - 7 (K2).
+
+    The call's host time is the registry's span `stft.pooled`, and its
+    windows (B * nw) its counter `k2.windows`, on either device."""
+    with GLOBAL.span("stft.pooled"):
+        return _stft_pooled_frames(frames, rate)
+
+
+def _stft_pooled_frames(frames: torch.Tensor, rate: int):
+    b, n, nw = _check(frames, rate)
+    if frames.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"K2 runs on CPU or CUDA tensors, not {frames.device}")
+    GLOBAL.count("k2.windows", b * nw)
     if frames.device.type == "cpu":
         return stft_pooled_frames_plain(frames, rate)
-    if frames.device.type != "cuda":
-        raise ValueError(f"K2 runs on CPU or CUDA tensors, not {frames.device}")
-    b, n, nw = _check(frames, rate)
     if not frames.is_contiguous():
         raise ValueError("frames must be contiguous")
     if b > 65535:

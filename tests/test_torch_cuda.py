@@ -81,6 +81,24 @@ def test_k1_kernel_matches_plain(cuda, rate, b, ragged):
     np.testing.assert_array_equal(got[2].cpu().numpy(), want[2].cpu().numpy())
 
 
+# steps of 4,096 (warps in series per step), 2,048 (the CLI bucket's 240 s
+# tracks) and 128 (4 threads a step); ragged, with a boundary in a thread
+@pytest.mark.parametrize("nc", [512, 528, 703])
+def test_k1_left_and_right_match_plain(cuda, nc):
+    """K1's parts before and from each step's 100 ms boundary, one by one,
+    against its plain version's."""
+    n = nc * 128
+    x4 = _noise((2, 2, nc, 128), nc).to(cuda)
+    x4[:, :, : nc // 2] *= 30.0                 # a loud half beside a quiet one
+    nv = torch.tensor([n, n - 4811], device=cuda)
+    filt = make_block_filter(kweight_cascade_ss(48000), 128, cuda)
+    got = K1.kweight_energy_tp_chunked(filt, x4, nv, (1.0, 1.0), 48000, 4800)[0]
+    want = K1.kweight_energy_tp_chunked_plain(filt, x4, nv, (1.0, 1.0), 48000, 4800)[0]
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (4, n // K1.step_length(n, 4800), 2)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=3e-4, atol=2e-5)
+
+
 def _k1_k5_inputs(cuda):
     n = 96 * 1024
     x = _noise((3, 2, n), 21).to(cuda)

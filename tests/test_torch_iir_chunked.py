@@ -108,9 +108,10 @@ def test_plain_k1_matches_pallas_interpret(rate, b, raggedness):
 
 @pytest.mark.parametrize("h", [4096, 4410, 4800, 9600])
 def test_subblock_gather_exact(rng, h):
-    """The per-step (total, pre-boundary) decomposition reconstructs exact
-    h-sample sub-block sums for any h >= span, h | n included; the port's
-    glue agrees with the JAX glue."""
+    """The per-step (pre-boundary, from the boundary) decomposition
+    reconstructs exact h-sample sub-block sums for any h >= span, h | n
+    included; the port's glue agrees with the JAX glue on its (total,
+    pre-boundary) decomposition of the same steps."""
     span = 4096
     n = span * 24
     z = rng.standard_normal((3, n)).astype(np.float64)
@@ -118,18 +119,21 @@ def test_subblock_gather_exact(rng, h):
     zs = z.reshape(3, nsteps, span)
     full = zs.sum(-1)
     left = np.zeros_like(full)
+    right = np.zeros_like(full)
     for s in range(nsteps):
         start = s * span
         bound = min(-(-start // h) * h, start + span)
         left[:, s] = zs[:, s, : bound - start].sum(-1)
-    step_sums = np.stack([full, left], axis=-1).astype(np.float32)
+        right[:, s] = zs[:, s, bound - start:].sum(-1)
+    step_sums = np.stack([left, right], axis=-1).astype(np.float32)
 
     got = K1.subblock_sums_from_steps(torch.from_numpy(step_sums), h, span,
                                       n).numpy()
     nb = n // h
     want = z[:, : nb * h].reshape(3, nb, h).sum(-1)
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-4)
-    jax_got = np.asarray(jax_subblock_sums(jnp.asarray(step_sums), h, span, n))
+    jax_steps = np.stack([full, left], axis=-1).astype(np.float32)
+    jax_got = np.asarray(jax_subblock_sums(jnp.asarray(jax_steps), h, span, n))
     np.testing.assert_allclose(got, jax_got, rtol=2e-5, atol=1e-4)
 
 
@@ -168,3 +172,61 @@ def test_cpu_run_launches_nothing():
     before = launches()["K1"]
     _port(x, nv, tf, w, 48000)
     assert launches()["K1"] == before
+
+
+@pytest.mark.parametrize("rate", [48000, 44100])
+def test_plain_k1_steps_match_pallas_interpret(rate):
+    """Step by step: the port's left + right and left against the JAX
+    kernel's (total, left) at the same span, at the sub-block tolerances."""
+    x, nv, jf, tf, w = _inputs(rate, 3, "ragged", seed=13)
+    b, ch, n = x.shape
+    h = rate // 10
+    S = chunked_plan(n, NC, b * ch, h, JC.true_peak_factor(rate))
+    assert S * 128 == K1.step_length(n, h)
+    steps, _, _ = K1.kweight_energy_tp_chunked(
+        tf, torch.from_numpy(x.reshape(b, ch, NC, 128)), torch.from_numpy(nv), w, rate, h)
+    steps = steps.numpy()
+    want, _, _ = jax_k1(jf.Tt, jf.Wt, jf.Ot, jf.A_pows, jnp.asarray(x.reshape(b, ch, NC, 128)),
+                        jnp.asarray(nv), w, rate, h, interpret=True)
+    want = np.asarray(want).reshape(steps.shape)
+    np.testing.assert_allclose(steps[..., 0] + steps[..., 1], want[..., 0], rtol=3e-4, atol=2e-5)
+    np.testing.assert_allclose(steps[..., 0], want[..., 1], rtol=3e-4, atol=2e-5)
+
+
+def _floored_gap(got, want):
+    return float(np.max(np.abs(np.maximum(got, -70.0) - np.maximum(want, -70.0))))
+
+
+def test_frames_route_keeps_a_quiet_part_beside_a_loud_one():
+    """A loud section (-10 dBFS) that ends 8 samples before a 100 ms
+    boundary inside a step, then programme near -70 LUFS: the step's part
+    from the boundary on holds the filter's decay and quiet samples alone.
+    Taken as the step's float32 total less its left part it lost 3.3e-3 LU
+    of momentary loudness; summed on its own, the frames route (K1's plain
+    version) comes within the rows route's (K3's) error of the float64
+    chain."""
+    from soundscope_tpu_torch.core.config import MeterConfig
+    from soundscope_tpu_torch.models.engine import analyze_batch_native
+    from soundscope_tpu_torch.tools import reference64
+
+    rate, n = 48000, 1 << 19
+    end = 23 * 4800 - 8                     # the boundary lies in step 26 of 4,096
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, n))
+    x[1] = 0.8 * x[0] + 0.6 * x[1]
+    gain = np.full(n, 10 ** (-74 / 20))
+    gain[:end] = 10 ** (-10 / 20)
+    x = (x * gain).astype(np.float32)
+    ref = reference64.analyze_reference(x.astype(np.float64), rate)
+    cfg = MeterConfig(channels=2, rate=rate, max_blocks=0)
+    nv = torch.tensor([n])
+
+    def timeline_gap(res):
+        m, s = int(res.n_momentary[0]), int(res.n_shortterm[0])
+        return max(_floored_gap(res.momentary[0, :m].numpy(), ref["momentary"]),
+                   _floored_gap(res.shortterm[0, :s].numpy(), ref["shortterm"]))
+
+    frames = analyze_batch_native(cfg, torch.from_numpy(x).reshape(1, 2, n // 128, 128), nv)
+    rows = analyze_batch_native(cfg, torch.from_numpy(x)[None], nv)   # the fused route, K3
+    assert timeline_gap(frames) <= 1.5 * timeline_gap(rows)
+    assert timeline_gap(rows) < 2e-5

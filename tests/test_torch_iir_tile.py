@@ -195,13 +195,13 @@ def emulate_k1(filt, x, nv, weights, rate, h):
     z = np.where(valid, w[:, None] * (y * y), 0.0)
     start = (g // L) * L
     bound = np.minimum(-(-start // h) * h, start + L)
-    zt = z.reshape(rows, n // TS, TS)
-    tot = zt.sum(-1).astype(np.float32).astype(np.float64)   # float32 per thread
-    left = np.where(g < bound, z, 0.0).reshape(rows, n // TS, TS).sum(-1)
-    left = left.astype(np.float32).astype(np.float64)
+    # each part a float32 sum per thread, then float64 over the step
+    left, right = (np.where(side, z, 0.0).reshape(rows, n // TS, TS).sum(-1)
+                   .astype(np.float32).astype(np.float64)
+                   for side in (g < bound, g >= bound))
     per = L // TS
-    steps = np.stack([tot.reshape(rows, -1, per).sum(-1),
-                      left.reshape(rows, -1, per).sum(-1)], -1).astype(np.float32)
+    steps = np.stack([left.reshape(rows, -1, per).sum(-1),
+                      right.reshape(rows, -1, per).sum(-1)], -1).astype(np.float32)
     tp, sp = _peaks(x.reshape(rows, n), nvr, rate)
     return steps, tp, sp
 

@@ -189,3 +189,25 @@ def test_launches_reads_the_registry():
     GLOBAL.count("launch.K4")
     assert metrics.launches() == {**before, "K4": before["K4"] + 1}
     assert metrics.launches(since=before) == {**dict.fromkeys(before, 0), "K4": 1}
+
+
+def test_frames_route_counts_k1_steps_and_k2_windows():
+    """A frames batch with its spectrogram: `k1.steps` grows by rows times
+    K1's steps, `k2.windows` by tracks times K2's windows, and the pooled
+    spectrogram's call is one `stft.pooled` span, on the CPU as on a card."""
+    from soundscope_tpu_torch.ops.iir_chunked import step_length
+    from soundscope_tpu_torch.ops.stft_pooled import stft_pooled_frames
+
+    cfg = MeterConfig(channels=2, rate=48000, max_blocks=0)
+    b, n = 2, 1 << 17
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((b, 2, n // 128, 128))
+                         .astype(np.float32) * 0.1)
+    keys = ("k1.steps", "k2.windows")
+    before = {k: GLOBAL.counter(k) for k in keys}
+    calls = (GLOBAL.span_stats("stft.pooled") or metrics.SpanStats()).calls
+    analyze_batch_native(cfg, x, torch.tensor([n, n - 5000]))
+    mid, _ = stft_pooled_frames(x, 48000)
+    assert mid.shape[:2] == (b, n // 2048 - 7)
+    assert {k: GLOBAL.counter(k) - before[k] for k in keys} == {
+        "k1.steps": b * 2 * (n // step_length(n, 4800)), "k2.windows": b * (n // 2048 - 7)}
+    assert GLOBAL.span_stats("stft.pooled").calls == calls + 1
