@@ -5,9 +5,9 @@ stft_pooled_pallas_frames`` (kernel ``_make_kernel``). For every track and
 every window w (frame rows [16w, 16w+128) of both channels, i.e. 16384
 samples at a 2048-sample hop) it computes
 
-1. the periodic Hann window and the packing z = (l+r)/2*w + i*(l-r)/2*w;
-2. the complex FFT of z;
-3. |M|^2 and |S|^2 by the conjugate split (k < 8192), times the squared
+1. mid (l+r)/2 and side (l-r)/2 under the periodic Hann window;
+2. their real FFTs;
+3. |M|^2 and |S|^2 of the bins below Nyquist (k < 8192), times the squared
    per-bin display gain (4/N dBFS, +3 dB/oct pink, 0 outside 20 Hz-20 kHz);
 4. the max over each band of 128 consecutive bins, then 10*log10 with the
    -150 dB floor; bands 64-127 lie at or above Nyquist and read the floor.
@@ -16,24 +16,26 @@ samples at a 2048-sample hop) it computes
 
 The TPU evaluates the FFT as four-step 128x128 DFT matmuls, because its
 matrix unit is its only fast unit: about 50 MFLOP per window. On the H100,
-csrc/stft_pooled.cu runs one CTA of 512 threads per (track, window) and a
-register-resident FFT in float32 (about 1.2 MFLOP per window): 16384 =
-32 x 32 x 16, each thread holding 32 complex values, three passes with two
-bank-conflict-free exchanges through shared memory, and the conjugate
-pairs k and -k in one thread, so the split needs no exchange of its own;
-the band max reads the powers back once in bin order. `twiddles_np` gives
-its pass twiddles (6 KB).
+csrc/stft_pooled.cu runs two CTAs of 256 threads per (track, window), one
+for mid and one for side, adjacent in launch order. Each takes the real
+16384-point FFT of its channel as a packed complex 8192-point one in
+float32 (about 0.55 MFLOP): 8192 = 32 x 16 x 16, each thread holding 32
+complex values, three passes with two bank-conflict-free exchanges
+through shared memory, and the pairs k and 8192 - k in one thread, so the
+real-FFT split needs no exchange of its own; the band max reads the
+powers back once in bin order. The Hann window is formed on the card from
+a table of 1 - cos and sin, exact to a few ulps down to its edges.
+`twiddles_np` gives the pass, split and window tables (18 KB).
 
-What bounds it on the H100 (PERF.md, PR 4): not memory, whose bound is
-under a tenth of its time. It uses 128 registers x 512 threads, the whole
-register file, so one CTA runs per SM and a window's load, passes and
-pool run in turn between barriers; instruction issue and those barriers
-are the likely limit (no profiler of the SMs runs on that machine). At
-the bench shape (32 x 60 s of 48 kHz stereo, 44,768 windows) it takes
-about 3.5 ms, 4.2x its float32 operation bound and less than cuFFT's FFT
-of the same windows alone (about 4.2 ms).
-A persistent variant that prefetches the next hop with cp.async into a
-shared-memory ring measured 2 % faster and was not taken.
+What bounds it on the H100: not memory. The 512-thread kernel before it
+(one CTA of 512 threads a window, mid and side packed into one complex
+FFT) used the whole register file, so one CTA ran per SM and a
+window's load, passes and pool ran in series between barriers: 28.06 ms
+at the frames cell's shape (64 x 240 s, 359,552 windows), 10.3x its
+2.71 ms FFT bound. At 256 threads and at most 128 registers, two
+independent CTAs share each SM, so one's shared-memory exchanges,
+barriers and load overlap the other's butterflies; PERF.md gives the
+measured time and the ablations of both designs.
 
 All N/2048 - 7 windows are computed: the TPU kernel's truncation to a
 multiple of its window chunk, and the tail fill around it, are not ported.
@@ -72,19 +74,27 @@ def rate_supported(rate: int) -> bool:
 
 
 def twiddles_np() -> np.ndarray:
-    """The kernel's pass twiddles W^e, W = exp(-2 pi i / WIN), as (768, 2)
-    (cos, -sin) float32 from float64: the fine table W^f (f < 128), the
-    coarse table W^(128 c) (c < 128) and pass 2's W^(32 j) (j < 512)."""
-    e = np.concatenate([np.arange(128), 128 * np.arange(128), 32 * np.arange(512)])
+    """The kernel's tables as (2306, 2) float32 from float64: twiddles W^e,
+    W = exp(-2 pi i / WIN), as (cos, -sin): pass 1's W^(2 l k1) at 32 k1 + l
+    (l, k1 < 32) and W^(64 j) (j < 256), pass 2's W^(64 u k2) at 16 k2 + u
+    (u, k2 < 16), the real-FFT split's W^e (e <= 256); then (1 - cos, sin)
+    of 2 pi e / WIN (e <= 512) for the Hann window."""
+    l, u = np.arange(32), np.arange(16)
+    e = np.concatenate([2 * np.outer(l, l).ravel(), 64 * np.arange(256),
+                        64 * np.outer(u, u).ravel(), np.arange(257)])
     ang = 2.0 * np.pi * e.astype(np.float64) / WIN
-    return np.stack([np.cos(ang), -np.sin(ang)], axis=-1).astype(np.float32)
+    hann = 2.0 * np.pi * np.arange(513, dtype=np.float64) / WIN
+    return np.concatenate([np.stack([np.cos(ang), -np.sin(ang)], axis=-1),
+                           np.stack([1.0 - np.cos(hann), np.sin(hann)], axis=-1)]
+                          ).astype(np.float32)
 
 
 @functools.lru_cache(maxsize=None)
 def _consts_np(rate: int):
     """Host constants of the kernel: Hann window (WIN,), squared gain of
-    the bins below Nyquist (WIN/2,), the pass twiddles (768, 2) — all
-    float32 from float64."""
+    the bins below Nyquist (WIN/2,), the tables (2306, 2) — all float32
+    from float64. The kernel forms its window from the twiddles; the Hann
+    table stays an argument of its C entry."""
     gain, _, _ = _pooled_gain_plan(WIN, rate, BANDS)
     g2 = (gain.astype(np.float64) ** 2).astype(np.float32)
     if not rate_supported(rate) or np.any(g2[WIN // 2:] > 0.0):
@@ -140,6 +150,8 @@ def _stft_pooled_frames(frames: torch.Tensor, rate: int):
         return stft_pooled_frames_plain(frames, rate)
     if not frames.is_contiguous():
         raise ValueError("frames must be contiguous")
+    if frames.data_ptr() % 8:
+        raise ValueError("frames must start on an 8-byte boundary (the kernel reads float2)")
     if b > 65535:
         raise ValueError(f"K2 takes at most 65535 tracks per call, got {b}")
     mid = torch.empty((b, nw, BANDS), dtype=torch.float32, device=frames.device)

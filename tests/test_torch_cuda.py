@@ -228,8 +228,15 @@ def test_k2_kernel_matches_plain(cuda, rate):
 
 def _k2_case(case, cuda):
     """(frames, rate) of K2's edge cases: one window (N = 16384), one
-    track, 33 tracks, 44.1 kHz, silence, and a full-scale sine at the
-    centre bin of band 20 (left 1, right 0.5)."""
+    track, 33 tracks, 44.1 kHz, silence, a full-scale sine at the centre
+    bin of band 20 (left 1, right 0.5), and noise only in a track's first
+    and last 300 samples, which the first and the last window see under
+    the Hann window's edges (1e-8 to 3e-3)."""
+    if case == "edges":
+        x = np.zeros((1, 2, 2048 * 24), np.float32)
+        noise = np.random.default_rng(7).standard_normal((2, 2, 300))
+        x[0, :, :300], x[0, :, -300:] = noise
+        return torch.from_numpy(x.reshape(1, 2, -1, 128)).to(cuda), 48000
     if case == "sine":
         t = np.arange(2048 * 24, dtype=np.float64)
         s = np.sin(2 * np.pi * (20 * 128 + 64) * t / 16384)
@@ -243,7 +250,7 @@ def _k2_case(case, cuda):
     return (_noise(shape, 11) * 3.0).to(cuda), rate
 
 
-@pytest.mark.parametrize("case", ["nw1", "b1", "b33", "44k1", "silence", "sine"])
+@pytest.mark.parametrize("case", ["nw1", "b1", "b33", "44k1", "silence", "sine", "edges"])
 def test_k2_kernel_cases(cuda, case):
     """Within 1e-3 dB of the plain version. Silence reads -150 dB in every
     band. Beside a sine every bin is float32 rounding noise, whose dB value
@@ -270,9 +277,36 @@ def test_k2_kernel_cases(cuda, case):
 
 
 def test_k2_kernel_attributes(cuda):
+    """Two CTAs of 256 threads (one window's mid and side) share each SM:
+    each at most half of the SM's shared memory, with no spills."""
     attrs = K2.kernel_attributes()
-    assert attrs["threads"] == 512 and attrs["blocks_per_sm"] >= 1
-    assert attrs["dynamic_smem"] == 2 * 16384 * 4 + 768 * 8
+    assert attrs["threads"] == 256 and attrs["blocks_per_sm"] >= 2
+    assert attrs["local_bytes"] == 0
+    assert attrs["dynamic_smem"] == 8192 * 8
+    per_sm = getattr(torch.cuda.get_device_properties(cuda),
+                     "shared_memory_per_multiprocessor", 228 * 1024)
+    assert attrs["dynamic_smem"] + attrs["static_smem"] <= per_sm // 2
+
+
+def test_k2_side_overflow_leaves_mid(cuda):
+    """Only the side's powers overflow float32: L = s + d, R = s - d with
+    d = +-2^60 and s a noise of integer multiples of 2^37, all exact in
+    float32. Mid matches the plain version band by band within 1e-3 dB;
+    side reads the floor or +Inf wherever the plain version does. Mid and
+    side are CTAs of their own, so nothing of one reaches the other."""
+    rng = np.random.default_rng(29)
+    n = 2048 * 24
+    s = np.round(rng.standard_normal((2, n)) * 2.0 ** 17) * 2.0 ** 37
+    d = np.where(rng.random((2, n)) < 0.5, -1.0, 1.0) * 2.0 ** 60
+    x = np.stack([s + d, s - d], axis=1).astype(np.float32)
+    assert (x.astype(np.float64) == np.stack([s + d, s - d], axis=1)).all()
+    fr = torch.from_numpy(x.reshape(2, 2, -1, 128)).to(cuda)
+    got = [a.cpu().numpy() for a in K2.stft_pooled_frames(fr, 48000)]
+    want = [a.cpu().numpy() for a in K2.stft_pooled_frames_plain(fr, 48000)]
+    assert np.isfinite(want[0]).all() and np.abs(got[0] - want[0]).max() < 1e-3
+    assert np.isposinf(want[1]).any()
+    assert (got[1][want[1] == -150.0] == -150.0).all()
+    assert np.isposinf(got[1][np.isposinf(want[1])]).all()
 
 
 def test_engine_cuda_matches_cpu(cuda):

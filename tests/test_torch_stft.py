@@ -215,40 +215,51 @@ def test_k2_rejects_what_it_cannot_pool():
     assert launches()["K2"] == before                    # CPU: plain, no launch
 
 
-# --- the CUDA kernel's pass structure (csrc/stft_pooled.cu), emulated in
-# float64 with its float32 constants: index maps, twiddles, exchange
-# layouts, the bin pairing and the band pool -------------------------------
+# --- the CUDA kernel (csrc/stft_pooled.cu), emulated in float64 with its
+# float32 constants: the Hann window and the even/odd packing, the 32 x 16
+# x 16 passes with their index maps, twiddles and exchange layouts, the
+# real-FFT split with its k <-> 8192 - k pairing, and the band pool ------
 
-_T = 512            # threads per CTA
-_N = 16384
+_T = 256            # threads per CTA
+_N = 16384          # window
+_H = _N // 2        # points of the packed complex FFT
+_TW_P1, _TW_WARP, _TW_P2, _TW_SPLIT, _TW_HANN = 0, 1024, 1280, 1536, 1793   # table offsets
 
 
-@functools.lru_cache(maxsize=None)
-def _cu_cos32_table():
-    """cos(2 pi b / 32), b = 0..7, as written in the kernel source."""
+def _cu_switch(name, n):
+    """The float32 constants of the kernel source's switch `name` (its
+    cases 0..n-1, the last one its default)."""
     import re
     from pathlib import Path
 
     import soundscope_tpu_torch
 
     src = (Path(soundscope_tpu_torch.__file__).parent / "csrc" / "stft_pooled.cu").read_text()
-    body = src[src.index("float cos32_q(int b)"):]
-    body = body[: body.index("default:")]
-    vals = dict(re.findall(r"case (\d+): return \(?(?:float\))?([0-9.e+-]+)f?\)?;", body))
-    return np.array([float(vals[str(b)]) for b in range(8)], np.float32)
+    body = src[src.index(f"float {name}(int"):]
+    body = body[: body.index("\n}\n")]
+    vals = dict(re.findall(r"(case \d+|default): return \(?(?:float\))?([0-9.e+-]+)f?\)?;", body))
+    return np.array([float(vals.get(f"case {b}", vals.get("default"))) for b in range(n)],
+                    np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _cu_cos32_table():
+    """cos(2 pi b / 32), b = 0..7, as written in the kernel source."""
+    return _cu_switch("cos32_q", 8)
+
+
+def _cos32(j):
+    """The kernel's cos32(j): cos(2 pi j / 32) from its float32 constants."""
+    c = _cu_cos32_table().astype(np.float64)
+    j %= 32
+    a = j if j <= 16 else 32 - j
+    return (c[a] if a < 8 else 0.0) if a <= 8 else -(c[16 - a] if 16 - a < 8 else 0.0)
 
 
 def _rot32(j):
     """W_32^j as the kernel's rot32 forms it (float32 constants)."""
-    c = _cu_cos32_table().astype(np.float64)
-
-    def cos32(j):
-        j %= 32
-        a = j if j <= 16 else 32 - j
-        return (c[a] if a < 8 else 0.0) if a <= 8 else -(c[16 - a] if 16 - a < 8 else 0.0)
-
     j %= 32
-    return {0: 1.0, 8: -1j, 16: -1.0, 24: 1j}.get(j, cos32(j) - 1j * cos32(j - 8))
+    return {0: 1.0, 8: -1j, 16: -1.0, 24: 1j}.get(j, _cos32(j) - 1j * _cos32(j - 8))
 
 
 def _dft_registers(v):
@@ -269,79 +280,195 @@ def _dft_registers(v):
     return v[..., rev]
 
 
-def _s1(k1, t):
-    return 512 * k1 + (t ^ ((k1 & 1) << 4))
+def _table():
+    tab = K2.twiddles_np().astype(np.float64)
+    return tab[:, 0] + 1j * tab[:, 1]
+
+
+def _s1(t, k1):
+    return 256 * k1 + (t ^ ((k1 & 3) << 3))
 
 
 def _s2(k1, k2, u):
-    return 512 * k2 + 32 * u + (k1 ^ (2 * u))
+    return 512 * k2 + 32 * u + (k1 ^ ((u & 7) << 1))
 
 
 def _pass3_groups(t):
-    """Thread t's two groups in pass 3: (k1, k2) and its partner."""
+    """Thread t's two groups in pass 3, (k1, k2) and its partner, as
+    arrays over t."""
     k1, k2 = t & 31, t >> 5
-    b2 = (31 - k2) if k1 else ((32 - k2) if k2 else 16)
+    b2 = np.where(k1 > 0, 15 - k2, np.where(k2 > 0, 16 - k2, 8))
     return (k1, k2), ((32 - k1) & 31, b2)
 
 
-def _banks_distinct(addr):
-    """Every warp (32 consecutive threads) touches 32 distinct banks."""
-    a = np.asarray(addr).reshape(-1, 32)
-    return all(len(set((row % 32).tolist())) == 32 for row in a)
+def _banks_distinct(addr, width=1):
+    """No bank conflict in any warp. addr: one element index per thread in
+    thread order (-1: the thread is idle), elements of `width` 4-byte
+    words. A warp is served in `width` phases of 32 / width lanes; in a
+    phase no two different elements may share a bank (lanes on one
+    element are a broadcast). For 32 different words a warp: 32 distinct
+    banks."""
+    for phase in np.asarray(addr).reshape(-1, 32 // width):
+        elems = {int(e) for e in phase if e >= 0}
+        if len({(e * width) % 32 for e in elems}) != len(elems):
+            return False
+    return True
 
 
-def _pass1_twiddles(tab):
-    """Pass 1's twiddles W^(t k1), (512, 32), as the kernel forms them:
-    W^(t a) W^(8 t b) for k1 = a + 8 b, each factor W^e the product of
-    the coarse W^(128 (e >> 7)) and the fine W^(e & 127)."""
-    def factor(e):
-        return tab[128 + (e >> 7)] * tab[e & 127]
+def _hann4(dtype=np.float64):
+    """The kernel's window over the packed layout: (256, 32, 2), thread t,
+    register m, even and odd sample of z[t + 256 m]: Hann / 4 = (vers b +
+    cos b (1 - cos a) + sin b sin a) / 8 from the table's (1 - cos a, sin
+    a) at a = 2 pi e / 16384 and the source's constants at b = 2 pi m / 32;
+    past the middle the mirrored sample, e = 2 (256 - t) or 2 (255 - t) + 1
+    at 31 - m. In `dtype`: float32 shows the kernel's rounding."""
+    vs = K2.twiddles_np()[_TW_HANN:].astype(dtype)
+    vers = _cu_switch("vers32", 16).astype(dtype)
+    t = np.arange(_T)
+    out = np.empty((_T, 32, 2), dtype)
+    for par in range(2):
+        lo, hi = vs[2 * t + par], vs[(512 - 2 * t) if par == 0 else (511 - 2 * t)]
+        for m in range(16):
+            c = dtype(0.125) * dtype(_cos32(m))
+            s = dtype(0.125) * dtype(_cos32(m - 8))
+            v = dtype(0.125) * vers[m]
+            out[:, m, par] = c * lo[:, 0] + (s * lo[:, 1] + v)
+            out[:, 31 - m, par] = c * hi[:, 0] + (s * hi[:, 1] + v)
+    return out
 
-    t = np.arange(_T)[:, None]
-    k1 = np.arange(32)[None, :]
-    a, b = k1 & 7, k1 >> 3
-    return np.where(a == 0, 1.0, factor(t * a)) * np.where(b == 0, 1.0, factor(8 * t * b))
+
+def _kernel_load(l, r, side):
+    """z[n] = x[2n] + i x[2n+1] of the channel x = (l +- r) Hann / 4, as
+    the kernel's thread t holds it in register m (n = t + 256 m)."""
+    h = _hann4()
+    s = (l.astype(np.float64) + (-1.0 if side else 1.0) * r.astype(np.float64))
+    s = s.reshape(32, _T, 2).transpose(1, 0, 2)          # sample 2 (t + 256 m) + par
+    return (s[..., 0] * h[..., 0] + 1j * s[..., 1] * h[..., 1]).T.reshape(-1)
 
 
 def _kernel_fft(z):
-    """The kernel's FFT of one window, pass by pass, in float64 with the
-    float32 twiddle tables; also returns the shared-memory addresses of
-    every exchange, one row per instruction, in thread order."""
-    tab = K2.twiddles_np().astype(np.float64)
-    tab = tab[:, 0] + 1j * tab[:, 1]
-    fine, coarse, p2 = tab[:128], tab[128:256], tab[256:]
+    """The kernel's 8192-point FFT of z, pass by pass; returns the pass-3
+    registers of every thread (group A, its partner B: (256, 16) each),
+    Z in bin order and the shared-memory element indices of every
+    exchange and twiddle read, one row per instruction in thread order."""
+    tab = _table()
     t = np.arange(_T)
+    lane, wp = t & 31, t >> 5
     ks = np.arange(32)
-    # load: thread t holds z[t + 512 m]
-    v = z[t[:, None] + _T * ks[None, :]]
-    v = _dft_registers(v) * _pass1_twiddles(tab)
-    buf = np.zeros(_N, np.complex128)
-    w1 = [_s1(k1, t) for k1 in range(32)]
+    v = _dft_registers(z[t[:, None] + 256 * ks[None, :]])
+    p1 = [_TW_P1 + 32 * k1 + lane for k1 in range(1, 32)]
+    for k1 in range(1, 32):
+        v[:, k1] *= tab[p1[k1 - 1]]                # the lane part W^(2 lane k1)
+    buf = np.full(_H, np.nan, np.complex128)
+    w1 = [_s1(t, k1) for k1 in range(32)]
     for k1 in range(32):
         buf[w1[k1]] = v[:, k1]
-    # pass 2: thread (k1, u) = (t >> 4, t & 15)
-    k1, u = t >> 4, t & 15
-    r1 = [_s1(k1, u + 16 * m) for m in range(32)]
-    v = np.stack([buf[a] for a in r1], axis=1)
-    v = _dft_registers(v) * p2[u[:, None] * ks[None, :]]
-    w2 = [_s2(k1, k2, u) for k2 in range(32)]
-    buf2 = np.full(_N, np.nan, np.complex128)
-    for k2 in range(32):
-        buf2[w2[k2]] = v[:, k2]
+    # pass 2: thread (k1, u0) = (t >> 3, t & 7), units u0 and u0 + 8; the
+    # warp part W^(64 (m2 >> 1) k1) of pass 1's twiddle first
+    k1, u0 = t >> 3, t & 7
+    pw = [_TW_WARP + j * k1 for j in range(1, 8)]
+    r1, w2, p2 = [], [], []
+    buf2 = np.full(_H, np.nan, np.complex128)
+    for u in (u0, u0 + 8):
+        rows = [_s1(u + 16 * m, k1) for m in range(16)]
+        vv = np.stack([buf[a] for a in rows], axis=1)
+        for m in range(2, 16):
+            vv[:, m] *= tab[pw[m // 2 - 1]]
+        vv = _dft_registers(vv)
+        tw = [_TW_P2 + 16 * k2 + u for k2 in range(1, 16)]
+        for k2 in range(1, 16):
+            vv[:, k2] *= tab[tw[k2 - 1]]
+        rows_w = [_s2(k1, k2, u) for k2 in range(16)]
+        for k2 in range(16):
+            buf2[rows_w[k2]] = vv[:, k2]
+        r1 += rows
+        w2 += rows_w
+        p2 += tw
     # pass 3: two groups per thread, 16-point DFTs over u
-    X = np.full(_N, np.nan, np.complex128)
-    r2 = []
-    groups = [_pass3_groups(i) for i in range(_T)]
-    for which in range(2):
-        g1 = np.array([g[which][0] for g in groups])
-        g2 = np.array([g[which][1] for g in groups])
-        rows = [_s2(g1, g2, uu) for uu in range(16)]
-        r2 += rows
+    X = np.full(_H, np.nan, np.complex128)
+    regs, r2 = [], []
+    for g1, g2 in _pass3_groups(t):
+        rows = [_s2(g1, g2, u) for u in range(16)]
         vv = _dft_registers(np.stack([buf2[a] for a in rows], axis=1))
         for k3 in range(16):
-            X[g1 + 32 * g2 + 1024 * k3] = vv[:, k3]
-    return X, {"exchange 1 write": w1, "exchange 1 read": r1,
-               "exchange 2 write": w2, "exchange 2 read": r2}
+            X[g1 + 32 * g2 + 512 * k3] = vv[:, k3]
+        regs.append(vv)
+        r2 += rows
+    exchanges = {"exchange 1 write": w1, "exchange 1 read": r1,
+                 "exchange 2 write": w2, "exchange 2 read": r2}
+    twiddles = {"pass 1 lane": p1, "pass 2 warp part": pw, "pass 2": p2}
+    return regs[0], regs[1], X, exchanges, twiddles
+
+
+def _kernel_split(A, B):
+    """The split and its power writes: pair j of thread (k1, k2) is (k,
+    8192 - k), k = k1 + 32 k2 + 512 j, from A[j] and B[15 - j]; thread 0
+    pairs (0, 0) and (0, 8) each with itself and forms bin 4096 alone.
+    Returns the powers in bin order (8192,), the power-write element
+    indices (-1: idle) and the split's twiddle reads."""
+    tab = _table()
+    t = np.arange(_T)
+    lane, wp = t & 31, t >> 5
+    me = t == 0
+    P = np.full(_H, np.nan)
+    reads = [_TW_SPLIT + lane + 32 * wp, np.full(_T, _TW_SPLIT + 256)]
+    wa, wb = tab[reads[0]], tab[reads[1]]
+    writes = []
+
+    def split_power(a, c, w):
+        er, ei = a.real + c.real, a.imag - c.imag
+        dr, di = a.real - c.real, a.imag + c.imag
+        tr, ti = w.real * di + w.imag * dr, w.imag * di - w.real * dr
+        return (er + tr) ** 2 + (ei + ti) ** 2, (er - tr) ** 2 + (ei - ti) ** 2
+
+    def put(k, p):
+        on = k >= 0
+        assert np.isnan(P[k[on]]).all()          # every bin written once
+        P[k[on]] = p[on]
+        writes.append(k)
+
+    for j in range(16):
+        hb = me & (j >= 8)
+        a = np.where(hb, B[:, j & 7], A[:, j])
+        c = np.where(me, A[:, (16 - j) & 15] if j < 8 else B[:, 23 - j], B[:, 15 - j])
+        base = wa if j < 8 else np.where(me, wb, wa * -1j)
+        ka = np.where(hb, 256 + 512 * (j - 8), lane + 32 * wp + 512 * j)
+        pa, pb = split_power(a, c, base * _rot32(j & 7))
+        put(ka, pa)
+        put(np.where(me & (j == 0), -1, _H - ka), pb)
+    pa, _ = split_power(A[:, 8], A[:, 8], -1j)
+    put(np.where(me, _H // 2, -1), pa)
+    assert not np.isnan(P).any()
+    return P, writes, reads
+
+
+def _kernel_pool(P, g2):
+    """Lane l of warp wp reads float4 l of bands 8 wp .. 8 wp + 7 and of
+    the squared gains; a butterfly of shuffles (xor 16, 8, 4: keep the half
+    of the bands that lane bit picks, max with the partner's other half;
+    then xor 2, 1) leaves band 8 wp + (l >> 2) in lane l. Returns the band
+    maxima (64,) as the lanes l % 4 == 0 write them, and the read element
+    indices (float4)."""
+    t = np.arange(_T)
+    lane, wp = t & 31, t >> 5
+    reads = [(8 * wp + j) * 32 + lane for j in range(8)]
+    q = (P * g2).reshape(64, 32, 4).max(axis=2)            # (band, lane)
+    m = np.stack([q[8 * wp + j, lane] for j in range(8)], axis=1)  # (t, 8)
+    h = 4
+    for o in (16, 8, 4):
+        up = (lane & o) > 0
+        keep = np.where(up[:, None], m[:, h:2 * h], m[:, :h])
+        send = np.where(up[:, None], m[:, :h], m[:, h:2 * h])
+        m = np.maximum(keep, send[t ^ o])
+        h //= 2
+    mine = m[:, 0]
+    for o in (2, 1):
+        mine = np.maximum(mine, mine[t ^ o])
+    bands = np.full(64, np.nan)
+    w = (lane & 3) == 0
+    bands[8 * wp[w] + (lane[w] >> 2)] = mine[w]
+    assert not np.isnan(bands).any()
+    return bands, reads
 
 
 def test_kernel_register_dft_constants_and_structure():
@@ -356,84 +483,97 @@ def test_kernel_register_dft_constants_and_structure():
 
 
 def test_kernel_pass_structure_matches_numpy_fft():
+    """The 32 x 16 x 16 passes against np.fft.fft; every exchange a
+    bijection and, like every twiddle read (through L1, whose banks are
+    shared memory's), free of bank conflicts."""
     rng = np.random.default_rng(7)
-    z = rng.standard_normal(_N) + 1j * rng.standard_normal(_N)
-    X, addrs = _kernel_fft(z)
+    z = rng.standard_normal(_H) + 1j * rng.standard_normal(_H)
+    A, B, X, exchanges, twiddles = _kernel_fft(z)
     want = np.fft.fft(z)
     assert not np.isnan(X).any()               # every bin written once
     err = np.abs(X - want).max() / np.abs(want).max()
     assert err < 1e-6, err                     # float32 twiddle tables
-    for name, rows in addrs.items():
-        for a in rows:                         # each instruction: a permutation
-            assert _banks_distinct(a), name    # of 32 banks in every warp
-        assert len(set(np.concatenate(rows).tolist())) == _N, name   # a bijection
+    for name, rows in exchanges.items():
+        for a in rows:                         # float2, each instruction
+            assert _banks_distinct(a, width=2), name   # a permutation
+        assert len(set(np.concatenate(rows).tolist())) == _H, name   # a bijection
+    for name, rows in twiddles.items():
+        for a in rows:
+            assert _banks_distinct(a, width=2), name   # float2 reads
 
 
 def test_kernel_twiddle_factorisation():
-    tab = K2.twiddles_np().astype(np.float64)
-    tab = tab[:, 0] + 1j * tab[:, 1]
-    e = np.arange(_T)[:, None] * np.arange(32)[None, :]
-    np.testing.assert_allclose(_pass1_twiddles(tab), np.exp(-2j * np.pi * e / _N),
-                               rtol=0, atol=4e-7)
-    assert (8 * (_T - 1) * 3) >> 7 < 128          # every factor's coarse index
-    j = np.arange(512)
-    np.testing.assert_allclose(tab[256 + j], np.exp(-2j * np.pi * 32 * j / _N),
-                               rtol=0, atol=1e-7)
-    assert (np.arange(16)[:, None] * np.arange(32)).max() < 512
+    tab = _table()
+    t = np.arange(_T)[:, None]
+    k1 = np.arange(32)[None, :]
+    got = tab[_TW_P1 + 32 * k1 + (t & 31)] * tab[_TW_WARP + (t >> 5) * k1]
+    np.testing.assert_allclose(got, np.exp(-2j * np.pi * t * k1 / _H), rtol=0, atol=4e-7)
+    assert 7 * 31 < 256                        # the warp part's index
+    u = np.arange(16)
+    np.testing.assert_allclose(tab[_TW_P2 + 16 * u[None, :] + u[:, None]],
+                               np.exp(-2j * np.pi * np.outer(u, u) / 256), rtol=0, atol=1e-7)
+    e = np.arange(257)
+    np.testing.assert_allclose(tab[_TW_SPLIT + e], np.exp(-2j * np.pi * e / _N), rtol=0, atol=1e-7)
+    e = np.arange(513)
+    vs = K2.twiddles_np()[_TW_HANN:].astype(np.float64)
+    a = 2 * np.pi * e / _N
+    np.testing.assert_allclose(vs, np.stack([1 - np.cos(a), np.sin(a)], axis=-1), rtol=1e-7, atol=0)
+    assert K2.twiddles_np().shape == (2306, 2)
 
 
-def _kernel_pool(X, g2):
-    """Pass 3's pairing (bin k with -k inside one thread), the bin-order
-    power writes and the warp band pool; returns (mid, side) powers per
-    band (64,), and the power-write and pool-read addresses."""
-    pm = np.full(_N // 2, np.nan)
-    ps = np.full(_N // 2, np.nan)
-    writes = []
-    for t in range(_T):
-        (a1, a2), (b1, b2) = _pass3_groups(t)
-        for k3 in range(8):
-            for (g1, gg2), (p1, p2), kk3 in (
-                    ((a1, a2), (a1, a2) if t == 0 else (b1, b2),
-                     (16 - k3) % 16 if t == 0 else 15 - k3),
-                    ((b1, b2), (b1, b2) if t == 0 else (a1, a2), 15 - k3)):
-                k = g1 + 32 * gg2 + 1024 * k3
-                kp = p1 + 32 * p2 + 1024 * kk3
-                assert kp == (-k) % _N
-                a, c = X[k], X[kp]
-                assert np.isnan(pm[k])
-                pm[k] = 0.25 * abs(a + np.conj(c)) ** 2 * g2[k]
-                ps[k] = 0.25 * abs(a - np.conj(c)) ** 2 * g2[k]
-    for k3 in range(8):
-        for which in range(2):
-            t = np.arange(_T)
-            g = [_pass3_groups(i)[which] for i in t]
-            writes.append(np.array([g1 + 32 * gg2 + 1024 * k3 for g1, gg2 in g]))
-    lane, q = np.arange(_T) & 31, np.arange(_T) >> 5
-    reads = [(4 * q + (j & 3)) * 128 + lane + 32 * i for j in range(4) for i in range(4)]
-    mid = np.array([pm[b * 128:(b + 1) * 128].max() for b in range(64)])
-    side = np.array([ps[b * 128:(b + 1) * 128].max() for b in range(64)])
-    assert not np.isnan(pm).any() and not np.isnan(ps).any()
-    return mid, side, writes, reads
+def test_kernel_hann_from_twiddles():
+    """The window formed in float32 from the table's (1 - cos, sin) and
+    the source's constants against Hann / 4 in float64, sample by sample,
+    to a few ulps relative, down to the edges where the window is 1e-8:
+    there 1 - cos of a rounded cosine keeps no digit."""
+    assert (_cu_switch("vers32", 16) ==
+            (1 - np.cos(2 * np.pi * np.arange(16) / 32)).astype(np.float32)).all()
+    got = _hann4(np.float32).transpose(1, 0, 2).reshape(-1).astype(np.float64)
+    want = 0.125 * (1 - np.cos(2 * np.pi * np.arange(_N) / _N))
+    assert got[0] == 0.0
+    assert (np.abs(got[1:] - want[1:]) / want[1:]).max() < 3e-7
+
+
+@pytest.mark.parametrize("side", [False, True])
+def test_kernel_split_matches_numpy_rfft(side):
+    """Load, packing, passes and split against np.fft.rfft of the windowed
+    mid or side in float64, bin by bin below Nyquist (gain 1); the pass-3
+    reads of a pair's two groups and the bin-order power writes free of
+    bank conflicts."""
+    rng = np.random.default_rng(17 + side)
+    l, r = rng.standard_normal((2, _N)).astype(np.float32)
+    z = _kernel_load(l, r, side)
+    A, B, _, exchanges, _ = _kernel_fft(z)
+    P, writes, reads = _kernel_split(A, B)
+    m = (l.astype(np.float64) + (-1 if side else 1) * r.astype(np.float64)) / 2
+    want = np.abs(np.fft.rfft(m * np.asarray(K2._consts_np(48000)[0], np.float64))[:_H]) ** 2
+    assert np.abs(P - want).max() / want.max() < 2e-6
+    for a in exchanges["exchange 2 read"] + reads:
+        assert _banks_distinct(a, width=2)
+    for a in writes:
+        assert _banks_distinct(a)
 
 
 @pytest.mark.parametrize("rate", RATES)
 def test_kernel_emulation_matches_plain_k2(rate):
-    """The emulated kernel (passes, pairing, pool, dB) against K2's plain
-    version on a short track: every window within 1e-3 dB."""
+    """The emulated kernel (window, passes, split, pool, dB), one CTA per
+    channel, against K2's plain version on a short track: every window
+    within 1e-3 dB."""
     x = _stereo(rate, 1, 10, seed=21)              # 3 windows
-    hann, g2, _ = K2._consts_np(rate)
-    mid_w, side_w = K2.stft_pooled_frames_plain(_frames(x), rate)
-    nw = mid_w.shape[1]
+    _, g2, _ = K2._consts_np(rate)
+    planes = K2.stft_pooled_frames_plain(_frames(x), rate)
+    nw = planes[0].shape[1]
     for w in range(nw):
-        l = x[0, 0, 2048 * w: 2048 * w + _N].astype(np.float64)
-        r = x[0, 1, 2048 * w: 2048 * w + _N].astype(np.float64)
-        hw = 0.5 * hann.astype(np.float64)
-        X, _ = _kernel_fft((l + r) * hw + 1j * (l - r) * hw)
-        mid, side, writes, reads = _kernel_pool(X, g2.astype(np.float64))
-        for a in writes + reads:
-            assert _banks_distinct(a)
-        for got, want in ((mid, mid_w[0, w]), (side, side_w[0, w])):
-            db = np.where(got > 0, 10 * np.log10(np.maximum(got, 1e-38)), -150.0)
-            want = want.numpy()
+        l, r = x[0, :, 2048 * w: 2048 * w + _N]
+        for side, want in enumerate(planes):
+            A, B, *_ = _kernel_fft(_kernel_load(l, r, side))
+            P, _, _ = _kernel_split(A, B)
+            bands, reads = _kernel_pool(P, g2.astype(np.float64))
+            np.testing.assert_array_equal(
+                bands, (P * g2).reshape(64, 128).max(axis=1))   # the butterfly's bands
+            for a in reads:
+                assert _banks_distinct(a, width=4)
+            db = np.where(bands > 0, 10 * np.log10(np.maximum(bands, 1e-38)), -150.0)
+            want = want[0, w].numpy()
             assert np.abs(db - want[:64]).max() < 1e-3
             assert (want[64:] == -150.0).all()
