@@ -407,15 +407,14 @@ def nonfinite_child(kernel: str) -> int:
     from soundscope_tpu_torch.ops import iir as IIR
     from soundscope_tpu_torch.ops import iir_chunked as K1
     from soundscope_tpu_torch.ops import truepeak_stream as K6
-    from soundscope_tpu_torch.ops.biquad import make_block_filter
-    from soundscope_tpu_torch.ops.kweight import kweight_cascade_ss
+    from soundscope_tpu_torch.ops.biquad import kweight_filter
 
     dev = torch.device("cuda")
     x, nv, first = nonfinite_input()
     n = x.shape[-1]
     xg, nvg = torch.from_numpy(x).to(dev), torch.from_numpy(nv).to(dev)
     xc = torch.from_numpy(np.where(np.isfinite(x), x, 0.0).astype(np.float32)).to(dev)
-    filt = make_block_filter(kweight_cascade_ss(48000), 128, dev)
+    filt = kweight_filter(48000, 128, dev)
     w = (1.0, 1.0)
     peaks = None
     if kernel == "K7":
@@ -627,8 +626,7 @@ def k7_phase(dev, gen, on) -> tuple[float, float]:
     import torch
 
     from soundscope_tpu_torch.ops import iir as IIR
-    from soundscope_tpu_torch.ops.biquad import make_block_filter
-    from soundscope_tpu_torch.ops.kweight import kweight_cascade_ss
+    from soundscope_tpu_torch.ops.biquad import kweight_filter
     from soundscope_tpu_torch.utils.metrics import launches
 
     worst, worst_rel = 0.0, 0.0
@@ -636,7 +634,7 @@ def k7_phase(dev, gen, on) -> tuple[float, float]:
              + [(48000, (1, 1024)), (48000, (3, 2, 2048)), (44100, (2, 7))]
              + [(48000, (2, 800)), (44100, (2, 44100)), (192000, (6, 192000))])
     for rate, shape in cases:
-        filt = make_block_filter(kweight_cascade_ss(rate), 128, dev)
+        filt = kweight_filter(rate, 128, dev)
         x = torch.randn(shape, generator=gen, device=dev) * 0.3
         s0 = torch.randn((*shape[:-1], 4), generator=gen, device=dev) * 0.1
         before = launches()["K7"]
@@ -710,11 +708,10 @@ def k7_float64_check(dev, on, seeds: int = 64) -> dict:
 
     from soundscope_tpu_torch.ops import biquad
     from soundscope_tpu_torch.ops import iir as IIR
-    from soundscope_tpu_torch.ops.kweight import kweight_cascade_ss
 
     out = {}
     for rate, shape in ((48000, (2, 800)), (44100, (2, 44100)), (192000, (6, 192000))):
-        filt = biquad.make_block_filter(kweight_cascade_ss(rate), 128, dev)
+        filt = biquad.kweight_filter(rate, 128, dev)
         xs, ss = [], []
         for seed in range(seeds):
             g = torch.Generator(device=dev)
@@ -891,12 +888,11 @@ def k7_timings(dev, gen, on) -> dict:
     import torch
 
     from soundscope_tpu_torch.ops import iir as IIR
-    from soundscope_tpu_torch.ops.biquad import make_block_filter
-    from soundscope_tpu_torch.ops.kweight import kweight_cascade_ss
+    from soundscope_tpu_torch.ops.biquad import kweight_filter
 
     out = {}
     for name, rate, shape, iters in K7_SHAPES:
-        filt = make_block_filter(kweight_cascade_ss(rate), 128, dev)
+        filt = kweight_filter(rate, 128, dev)
         x = torch.randn(shape, generator=gen, device=dev) * 0.3
         s0 = torch.zeros((shape[0], 4), device=dev)
 
@@ -1168,8 +1164,7 @@ def tui_file_phase(dev, tmp, on) -> dict:
     from soundscope_tpu_torch.core.config import MeterConfig
     from soundscope_tpu_torch.models.engine import analyze_array
     from soundscope_tpu_torch.ops import iir as IIR
-    from soundscope_tpu_torch.ops.biquad import make_block_filter
-    from soundscope_tpu_torch.ops.kweight import kweight_cascade_ss
+    from soundscope_tpu_torch.ops.biquad import kweight_filter
     from soundscope_tpu_torch.utils import io as sio
     from soundscope_tpu_torch.utils.flacenc import write_flac
     from soundscope_tpu_torch.utils.metrics import launches
@@ -1290,7 +1285,7 @@ def tui_file_phase(dev, tmp, on) -> dict:
 
         # K7 at the TUI's push: the meter's strided view of 16,384
         # interleaved samples
-        filt = make_block_filter(kweight_cascade_ss(rate), 128, dev)
+        filt = kweight_filter(rate, 128, dev)
         inter = torch.from_numpy(app.audio_file.interleaved()[: 16384].copy()).to(dev)
         view = inter.reshape(-1, 2).T
         s0 = torch.zeros((2, 4), device=dev)
@@ -1509,8 +1504,7 @@ def parallel_phases(dev, gen, on, lib) -> dict:
     from soundscope_tpu_torch.core.config import MeterConfig
     from soundscope_tpu_torch.models.engine import _finish, analyze_batch_native
     from soundscope_tpu_torch.ops import iir as IIR
-    from soundscope_tpu_torch.ops.biquad import make_block_filter
-    from soundscope_tpu_torch.ops.kweight import kweight_cascade_ss
+    from soundscope_tpu_torch.ops.biquad import kweight_filter
     from soundscope_tpu_torch.parallel import (
         global_batch,
         init_distributed,
@@ -1586,7 +1580,7 @@ def parallel_phases(dev, gen, on, lib) -> dict:
 
         # K7 at the path's shapes against its plain version: the whole
         # programme from zero state, a shard of 4 from its composed state
-        filt = make_block_filter(kweight_cascade_ss(RATE), cfg.block, dev)
+        filt = kweight_filter(RATE, cfg.block, dev)
         nloc = npad // SHARDS
         shard = x[0, :, nloc:2 * nloc].contiguous()
         s0 = torch.zeros((2, 4), device=dev)
@@ -1963,8 +1957,8 @@ def main() -> int:
     from soundscope_tpu_torch.ops import iir_chunked as K1
     from soundscope_tpu_torch.ops import stft_pooled as K2
     from soundscope_tpu_torch.ops import truepeak_stream as K6
-    from soundscope_tpu_torch.ops.biquad import make_block_filter
-    from soundscope_tpu_torch.ops.kweight import channel_weights, kweight_cascade_ss
+    from soundscope_tpu_torch.ops.biquad import kweight_filter
+    from soundscope_tpu_torch.ops.kweight import channel_weights
     from soundscope_tpu_torch.utils.io import write_wav
     from soundscope_tpu_torch.utils.metrics import launches
 
@@ -1982,7 +1976,7 @@ def main() -> int:
     print(f"phase build: {time.time() - t0:.2f} s (nvcc {_build.nvcc()})")
 
     def filt_fn(rate):
-        return make_block_filter(kweight_cascade_ss(rate), 128, dev)
+        return kweight_filter(rate, 128, dev)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)

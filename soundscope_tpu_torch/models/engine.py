@@ -35,13 +35,13 @@ from soundscope_tpu_torch.core.config import MeterConfig
 from soundscope_tpu_torch.core.device import default_device, upload
 from soundscope_tpu_torch.ops import iir as IIR
 from soundscope_tpu_torch.ops import loudness as L
-from soundscope_tpu_torch.ops.biquad import block_iir, make_block_filter
+from soundscope_tpu_torch.ops.biquad import block_iir, kweight_filter
 from soundscope_tpu_torch.ops.iir_chunked import (
     kweight_energy_tp_chunked,
     step_length,
     subblock_sums_from_steps,
 )
-from soundscope_tpu_torch.ops.kweight import channel_weights, kweight_cascade_ss
+from soundscope_tpu_torch.ops.kweight import channel_weights
 from soundscope_tpu_torch.ops.truepeak import true_peak_masked
 from soundscope_tpu_torch.ops.truepeak_stream import true_peak_stream
 from soundscope_tpu_torch.utils.metrics import GLOBAL as RT
@@ -184,7 +184,7 @@ def _analyze_batch(cfg: MeterConfig, samples: torch.Tensor, n_valid) -> Analysis
         n_valid = upload(n_valid, dev).to(torch.int64)
         weights = channel_weights(cfg.channels)
         w = tuple(float(v) for v in weights)
-        filt = make_block_filter(kweight_cascade_ss(cfg.rate), cfg.block, dev)
+        filt = kweight_filter(cfg.rate, cfg.block, dev)
         if samples.ndim == 4:
             b, ch, nc, _ = samples.shape
             n = nc * 128

@@ -11,7 +11,8 @@ on a CPU tensor) and computes everything else with tensor ops on that
 device. A push of a CUDA tensor never waits for the device: the rings are
 rolled by index arithmetic on device tensors, every shape depends on the
 chunk length alone, and the constants are uploaded without a host sync at
-the first push on a device.
+the first push on a device; the one wait is the K-weighting filter's, for
+its upload, at its first use in the process (ops/biquad.kweight_filter).
 
 Exactness notes (as in the JAX package):
 * momentary / short-term are computed from a ring of the channel-weighted
@@ -46,9 +47,9 @@ from soundscope_tpu_torch.core.config import MeterConfig
 from soundscope_tpu_torch.core.device import upload
 from soundscope_tpu_torch.core.state import MeterState, init_meter_state
 from soundscope_tpu_torch.ops import loudness as L
-from soundscope_tpu_torch.ops.biquad import make_block_filter
+from soundscope_tpu_torch.ops.biquad import kweight_filter
 from soundscope_tpu_torch.ops.iir import block_iir_stream
-from soundscope_tpu_torch.ops.kweight import channel_weights, kweight_cascade_ss
+from soundscope_tpu_torch.ops.kweight import channel_weights
 from soundscope_tpu_torch.ops.truepeak import oversampled_abs_peak, sample_peak
 
 _S = C.SHORTTERM_SUBBLOCKS    # 30 sub-blocks in the 3 s window and the ring
@@ -58,7 +59,7 @@ _M = C.MOMENTARY_SUBBLOCKS    # 4 sub-blocks in a 400 ms gating block
 @functools.lru_cache(maxsize=None)
 def _constants(cfg: MeterConfig, device: torch.device):
     """The K-weighting filter and the channel weights on `device`."""
-    filt = make_block_filter(kweight_cascade_ss(cfg.rate), cfg.block, device)
+    filt = kweight_filter(cfg.rate, cfg.block, device)
     weights = upload(channel_weights(cfg.channels).astype(np.float32), device)
     return filt, weights
 

@@ -10,6 +10,10 @@ sources have a plain C interface and include no PyTorch headers, so a
 build takes seconds. A missing nvcc or a failed build raises; nothing
 falls back.
 
+`launch` and `attributes` are the one way the wrappers (K1-K7) call the
+library: a launch on the device's current stream, its error raised and
+its count `launch.<kernel>` taken; a kernel's resources as one dict.
+
 Import this module only where a kernel is launched: the package itself
 imports on machines without a CUDA toolkit.
 """
@@ -23,6 +27,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 from soundscope_tpu_torch.utils.metrics import GLOBAL
 
@@ -69,6 +75,9 @@ _ENTRIES = (
     # T, out[6]: K7's resources
     ("ss_block_iir_stream_attrs", [_I64, _P]),
 )
+# what each *_attrs entry writes to its out[6], in order
+ATTRIBUTE_KEYS = ("registers", "static_smem", "dynamic_smem", "local_bytes",
+                  "threads", "blocks_per_sm")
 
 
 def nvcc() -> str:
@@ -154,3 +163,25 @@ def raise_on_error(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.ss_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def launch(entry: str, what: str, device, *args) -> None:
+    """Call the C entry `entry` with `args` and, last, `device`'s current
+    stream; raise with `what` if it returns a CUDA error, else count a
+    launch of the kernel `what` names first (`launch.K1` .. `launch.K7`)."""
+    lib = library()
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+    raise_on_error(lib, err, what)
+    GLOBAL.count(f"launch.{what.split()[0]}")
+
+
+def attributes(entry: str, *args) -> dict:
+    """A kernel's resources as the CUDA runtime reports them (needs a card),
+    from the C entry `entry` called with `args` and an out[6]: registers
+    per thread, static and dynamic shared memory bytes per CTA, local
+    (spill) bytes per thread, threads per CTA and CTAs resident per SM."""
+    lib = library()
+    out = (ctypes.c_int * len(ATTRIBUTE_KEYS))()
+    raise_on_error(lib, getattr(lib, entry)(*args, out), entry)
+    return dict(zip(ATTRIBUTE_KEYS, out))

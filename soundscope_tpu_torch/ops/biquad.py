@@ -20,17 +20,23 @@ reference) and applied in float32. The only sequential dependency, the
 This is the plain version of K1's filter (ops/iir_chunked.py). K1 itself
 runs the same system sample by sample in the modal realisation, so the
 filter carries that realisation (A, B, C, D) in float64 as well.
+
+`kweight_filter(rate, block, device)` is the K-weighting filter as the
+program gets it: one BlockFilter per (rate, block, device) in a process,
+uploaded once, with the kernels' host constants kept on it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import threading
 
 import numpy as np
 import torch
 
 from soundscope_tpu_torch.core.device import upload
+from soundscope_tpu_torch.ops.kweight import kweight_cascade_ss
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,13 +82,12 @@ class BlockFilter:
         return np.linalg.matrix_power(self.A, steps)
 
 
-@functools.lru_cache(maxsize=None)
-def _build_block_filter_np(ss_key, block: int):
-    """ss_key: hashable ((A rows...), (B...), (C...), D) in f64."""
-    A = np.asarray(ss_key[0], np.float64)
-    Bv = np.asarray(ss_key[1], np.float64)
-    Cv = np.asarray(ss_key[2], np.float64)
-    D = float(ss_key[3])
+def _build_block_filter_np(ss, block: int):
+    """ss: (A, B, C, D) in f64 (arrays or nested tuples)."""
+    A = np.asarray(ss[0], np.float64)
+    Bv = np.asarray(ss[1], np.float64)
+    Cv = np.asarray(ss[2], np.float64)
+    D = float(ss[3])
     n = A.shape[0]
     B = block
 
@@ -163,19 +168,40 @@ def modal_form(ss):
 def make_block_filter(ss, block: int = 128, device="cpu") -> BlockFilter:
     """Build a BlockFilter from a float64 state-space tuple (A, B, C, D)."""
     A, Bv, Cv, D = modal_form(ss)
-    key = (
-        tuple(map(tuple, np.asarray(A))),
-        tuple(np.asarray(Bv)),
-        tuple(np.asarray(Cv)),
-        float(D),
-    )
-    Tt, Wt, Ot, pows = _build_block_filter_np(key, block)
+    Tt, Wt, Ot, pows = _build_block_filter_np((A, Bv, Cv, D), block)
     return BlockFilter(
         Tt=upload(Tt, device), Wt=upload(Wt, device), Ot=upload(Ot, device),
         A_pows=upload(pows, device), block=block,
         A=np.asarray(A), Bv=np.asarray(Bv), Cv=np.asarray(Cv), D=float(D),
         A_block=np.linalg.matrix_power(np.asarray(A), block),
     )
+
+
+_KWEIGHT_LOCK = threading.Lock()
+
+
+def kweight_filter(rate: int, block: int = 128, device="cpu") -> BlockFilter:
+    """The K-weighting filter at `rate` in blocks of `block` on `device`:
+    the same BlockFilter for every call at one (rate, block, device) in the
+    process ("cuda" is the current card), so its tensors are uploaded once
+    and the kernels' host constants on it (ops/iir_tile.py) are built once.
+    The call that builds it waits for its upload, so its tensors can be
+    read on any stream."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    with _KWEIGHT_LOCK:
+        return _kweight_filter(int(rate), int(block), dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _kweight_filter(rate: int, block: int, device: torch.device) -> BlockFilter:
+    filt = make_block_filter(kweight_cascade_ss(rate), block, device)
+    if device.type == "cuda":
+        uploaded = torch.cuda.Event()
+        uploaded.record(torch.cuda.current_stream(device))
+        uploaded.synchronize()
+    return filt
 
 
 def _affine_combine(left, right):

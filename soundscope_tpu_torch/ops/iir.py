@@ -186,8 +186,9 @@ def _tile_checks(filt, group, ch, what):
 
 def _tile_rows(filt, x, n_valid, weights, group, factor, T, lookback, what):
     """Launch ss_kweight_energy_rows on the tile-scan core: factor 0 is K4
-    or K5 (the rows of nonzero weight), 2 or 4 is K3 (every row). Returns
-    (z, tp, sp); tp and sp are None for factor 0."""
+    or K5 (the rows of nonzero weight), 2 or 4 is K3 (every row); `what`
+    names the kernel first. Returns (z, tp, sp); tp and sp are None for
+    factor 0."""
     b, ch, n, nv = _launchable(filt, x, n_valid, weights, what)
     _tile_checks(filt, group, ch, what)
     dev = x.device
@@ -209,14 +210,10 @@ def _tile_rows(filt, x, n_valid, weights, group, factor, T, lookback, what):
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.ss_kweight_energy_rows(
-            x.data_ptr(), nv.data_ptr(), consts.ctypes.data, taps.ctypes.data,
-            w.ctypes.data, factor, b, ch, n, group, T, lookback, sync.data_ptr(),
-            zr.data_ptr(), z.data_ptr(), ptr(tp_part), ptr(sp_part), ptr(tp), ptr(sp),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.raise_on_error(lib, err, what)
+    _build.launch("ss_kweight_energy_rows", what, dev,
+                  x.data_ptr(), nv.data_ptr(), consts.ctypes.data, taps.ctypes.data,
+                  w.ctypes.data, factor, b, ch, n, group, T, lookback, sync.data_ptr(),
+                  zr.data_ptr(), z.data_ptr(), ptr(tp_part), ptr(sp_part), ptr(tp), ptr(sp))
     return z, tp, sp
 
 
@@ -235,10 +232,8 @@ def kweight_energy_tp_prefix(filt: BlockFilter, x: torch.Tensor,
         raise ValueError("K3 needs an oversampling true-peak factor (rate < 192 kHz)")
     if x.device.type == "cpu":
         return kweight_energy_tp_prefix_plain(filt, x, n_valid, weights, rate, group)
-    out = _tile_rows(filt, x, n_valid, weights, group, factor, TP_TILE, LOOKBACK,
-                     "K3 kweight_energy_tp_prefix")
-    GLOBAL.count("launch.K3")
-    return out
+    return _tile_rows(filt, x, n_valid, weights, group, factor, TP_TILE, LOOKBACK,
+                      "K3 kweight_energy_tp_prefix")
 
 
 def kweight_energy_prefix(filt: BlockFilter, x: torch.Tensor,
@@ -249,7 +244,6 @@ def kweight_energy_prefix(filt: BlockFilter, x: torch.Tensor,
         return kweight_energy_prefix_plain(filt, x, n_valid, weights, group)
     z, _, _ = _tile_rows(filt, x, n_valid, weights, group, 0, CHAIN_TILE, LOOKBACK,
                          "K4 kweight_energy_prefix")
-    GLOBAL.count("launch.K4")
     return z
 
 
@@ -272,7 +266,6 @@ def kweight_energy_chain(filt: BlockFilter, x: torch.Tensor,
     if not 1 <= na <= TRACK_CHANNELS:
         b, _, n = rows_shape(x, weights)
         z, _, _ = _tile_rows(filt, x, n_valid, weights, group, 0, CHAIN_TILE, 0, what)
-        GLOBAL.count("launch.K5")
         GLOBAL.count("k5.segments", b * na * -(-n // CHAIN_TILE))
         return z
     b, ch, n, nv = _launchable(filt, x, n_valid, weights, what)
@@ -286,15 +279,11 @@ def kweight_energy_chain(filt: BlockFilter, x: torch.Tensor,
 
     from soundscope_tpu_torch.ops import _build
 
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.ss_kweight_energy_chain(
-            x.data_ptr(), nv.data_ptr(), consts.ctypes.data,
-            iir_tile.lane_powers(filt).ctypes.data, w.ctypes.data, b, ch, n,
-            group, CHAIN_TILE, Tc, sync.data_ptr(), z.data_ptr(),
-            _skipped_cell(dev).data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _build.raise_on_error(lib, err, what)
-    GLOBAL.count("launch.K5")
+    _build.launch("ss_kweight_energy_chain", what, dev,
+                  x.data_ptr(), nv.data_ptr(), consts.ctypes.data,
+                  iir_tile.lane_powers(filt).ctypes.data, w.ctypes.data, b, ch, n,
+                  group, CHAIN_TILE, Tc, sync.data_ptr(), z.data_ptr(),
+                  _skipped_cell(dev).data_ptr())
     GLOBAL.count("k5.segments", b * nseg * na)
     return z
 
@@ -308,10 +297,6 @@ def _skipped_cell(device: torch.device) -> torch.Tensor:
     return cell
 
 
-ATTRIBUTE_KEYS = ("registers", "static_smem", "dynamic_smem", "local_bytes",
-                  "threads", "blocks_per_sm")
-
-
 def rows_attributes(factor: int, lookback: int, tracks: bool = False) -> dict:
     """Resources of K3's kernel (factor 2 or 4, at TP_TILE) or of K4's
     (factor 0, lookback LOOKBACK) or K5's (factor 0, lookback 0: on track
@@ -319,17 +304,10 @@ def rows_attributes(factor: int, lookback: int, tracks: bool = False) -> dict:
     runtime reports them (needs a card): registers per thread, static and
     dynamic shared memory bytes per CTA, local (spill) bytes per thread,
     threads per CTA and CTAs per SM."""
-    import ctypes
-
     from soundscope_tpu_torch.ops import _build
 
-    lib = _build.library()
-    out = (ctypes.c_int * 6)()
-    T = TP_TILE if factor else CHAIN_TILE
-    _build.raise_on_error(
-        lib, lib.ss_kweight_energy_rows_attrs(factor, T, lookback, int(tracks), out),
-        "rows attributes")
-    return dict(zip(ATTRIBUTE_KEYS, out))
+    return _build.attributes("ss_kweight_energy_rows_attrs", factor,
+                             TP_TILE if factor else CHAIN_TILE, lookback, int(tracks))
 
 
 def block_iir_stream_plain(filt: BlockFilter, x: torch.Tensor, s0: torch.Tensor):
@@ -367,26 +345,21 @@ def block_iir_stream(filt: BlockFilter, x: torch.Tensor, s0: torch.Tensor):
     T = CHAIN_TILE
     nseg = -(-n // T)
     dev = x.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
     consts = iir_tile.tile_constants(filt, T)
     ar = iir_tile.power_blocks(filt, (n - 1) % iir_tile.TS + 1)
     sync = None
     if nseg > 1:
-        sync = _stream_records(dev, stream, rows, nseg)
+        sync = _stream_records(dev, torch.cuda.current_stream(dev).cuda_stream, rows, nseg)
         sync.fill_(-1)
     y = torch.empty((rows, n), dtype=torch.float32, device=dev)
     s_out = torch.empty((rows, 4), dtype=torch.float32, device=dev)
 
     from soundscope_tpu_torch.ops import _build
 
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.ss_block_iir_stream(
-            x2.data_ptr(), x2.stride(0), x2.stride(1), s0c.data_ptr(), consts.ctypes.data,
-            ar.ctypes.data, rows, n, T, None if sync is None else sync.data_ptr(),
-            y.data_ptr(), s_out.data_ptr(), stream)
-    _build.raise_on_error(lib, err, what)
-    GLOBAL.count("launch.K7")
+    _build.launch("ss_block_iir_stream", what, dev,
+                  x2.data_ptr(), x2.stride(0), x2.stride(1), s0c.data_ptr(), consts.ctypes.data,
+                  ar.ctypes.data, rows, n, T, None if sync is None else sync.data_ptr(),
+                  y.data_ptr(), s_out.data_ptr())
     return y.reshape(*batch, n), s_out.reshape(*batch, 4)
 
 
@@ -401,15 +374,9 @@ def stream_attributes() -> dict:
     """Resources of K7's kernel at segments of CHAIN_TILE samples, as the
     CUDA runtime reports them (needs a card); the keys of
     `rows_attributes`."""
-    import ctypes
-
     from soundscope_tpu_torch.ops import _build
 
-    lib = _build.library()
-    out = (ctypes.c_int * 6)()
-    _build.raise_on_error(lib, lib.ss_block_iir_stream_attrs(CHAIN_TILE, out),
-                          "K7 attributes")
-    return dict(zip(ATTRIBUTE_KEYS, out))
+    return _build.attributes("ss_block_iir_stream_attrs", CHAIN_TILE)
 
 
 def block_iir_zero(filt: BlockFilter, x: torch.Tensor) -> torch.Tensor:

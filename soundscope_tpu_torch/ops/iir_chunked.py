@@ -176,16 +176,11 @@ def kweight_energy_tp_chunked(filt: BlockFilter, x4: torch.Tensor,
 
     from soundscope_tpu_torch.ops import _build
 
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.ss_kweight_energy_tp(
-            x4.data_ptr(), nv.data_ptr(), consts.ctypes.data, taps.ctypes.data,
-            w.ctypes.data, factor,
-            rows, ch, n, L, h, T, sync.data_ptr(), step_sums.data_ptr(),
-            tp_part.data_ptr(), sp_part.data_ptr(), tp.data_ptr(), sp.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.raise_on_error(lib, err, "K1 kweight_energy_tp")
-    GLOBAL.count("launch.K1")
+    _build.launch("ss_kweight_energy_tp", "K1 kweight_energy_tp", dev,
+                  x4.data_ptr(), nv.data_ptr(), consts.ctypes.data, taps.ctypes.data,
+                  w.ctypes.data, factor,
+                  rows, ch, n, L, h, T, sync.data_ptr(), step_sums.data_ptr(),
+                  tp_part.data_ptr(), sp_part.data_ptr(), tp.data_ptr(), sp.data_ptr())
     return step_sums, tp, sp
 
 
@@ -201,17 +196,9 @@ def kernel_attributes(factor: int = 4, T: int = 8192) -> dict:
     """K1's resources as the CUDA runtime reports them (needs a card):
     registers per thread, static and dynamic shared memory bytes per CTA,
     local (spill) bytes per thread, threads per CTA and CTAs per SM."""
-    import ctypes
-
     from soundscope_tpu_torch.ops import _build
 
-    lib = _build.library()
-    out = (ctypes.c_int * 6)()
-    _build.raise_on_error(lib, lib.ss_kweight_energy_tp_attrs(factor, T, out),
-                          "K1 attributes")
-    keys = ("registers", "static_smem", "dynamic_smem", "local_bytes",
-            "threads", "blocks_per_sm")
-    return dict(zip(keys, out))
+    return _build.attributes("ss_kweight_energy_tp_attrs", factor, T)
 
 
 @functools.lru_cache(maxsize=None)

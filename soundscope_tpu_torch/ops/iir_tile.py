@@ -63,12 +63,22 @@ def modal_blocks_ok(A: np.ndarray) -> bool:
     return A.shape == (4, 4) and float(np.abs(off).max()) <= 1e-9 * float(np.abs(A).max())
 
 
-def modal_filter(filt) -> bool:
-    """modal_blocks_ok for a 4-state filter's A, cached on the filter."""
+def _kept(filt, key, make):
+    """filt._consts[key], made by make() at the first ask and kept (an array
+    read-only): the filter lives as long as its (rate, block, device), so
+    its constants are built once (ops/biquad.kweight_filter)."""
     cache = filt._consts
-    if "modal" not in cache:
-        cache["modal"] = filt.A.shape == (4, 4) and modal_blocks_ok(filt.A)
-    return cache["modal"]
+    if key not in cache:
+        out = make()
+        if isinstance(out, np.ndarray):
+            out.setflags(write=False)
+        cache[key] = out
+    return cache[key]
+
+
+def modal_filter(filt) -> bool:
+    """modal_blocks_ok for a 4-state filter's A, kept on the filter."""
+    return _kept(filt, "modal", lambda: filt.A.shape == (4, 4) and modal_blocks_ok(filt.A))
 
 
 def _blocks(M: np.ndarray) -> np.ndarray:
@@ -76,69 +86,46 @@ def _blocks(M: np.ndarray) -> np.ndarray:
     return np.concatenate([M[:2, :2].reshape(-1), M[2:, 2:].reshape(-1)])
 
 
-@functools.lru_cache(maxsize=64)
-def _tile_constants(a_bytes: bytes, b_bytes: bytes, c_bytes: bytes, d: float,
-                    T: int) -> np.ndarray:
-    A = np.frombuffer(a_bytes).reshape(4, 4)
-    B = np.frombuffer(b_bytes)
-    Cv = np.frombuffer(c_bytes)
-    pw = functools.partial(np.linalg.matrix_power, A)
-    W = np.stack([pw(TS - 1 - k) @ B for k in range(TS)])
-    KS = np.stack([pw(TS << r) for r in range(5)])
-    AW = np.stack([pw(TS * 32 * w) for w in range(MAX_WARPS)])
-    LB = np.stack([_blocks(pw(T << b)) for b in range(LB_BITS)])
-    out = np.concatenate([A.reshape(-1), B, Cv, [d], W.reshape(-1), KS.reshape(-1),
-                          AW.reshape(-1), pw(T).reshape(-1),
-                          LB.reshape(-1)]).astype(np.float32)
-    assert out.size == TILE_FLOATS
-    out.setflags(write=False)
-    return out
+def _power(filt, m: int) -> np.ndarray:
+    """A^m of the filter's A in float64."""
+    return np.linalg.matrix_power(np.asarray(filt.A, np.float64), m)
 
 
 def tile_constants(filt, T: int) -> np.ndarray:
     """The kernels' TileConsts for the filter's modal realisation and a
-    segment of T samples (float32 from float64, cached, also on the
-    filter's host cache)."""
-    cache = filt._consts
-    key = ("tile", int(T))
-    if key not in cache:
-        cache[key] = _tile_constants(np.ascontiguousarray(filt.A, np.float64).tobytes(),
-                                     np.ascontiguousarray(filt.Bv, np.float64).tobytes(),
-                                     np.ascontiguousarray(filt.Cv, np.float64).tobytes(),
-                                     float(filt.D), int(T))
-    return cache[key]
+    segment of T samples (float32 from float64), kept on the filter,
+    read-only."""
+    def make():
+        A = np.asarray(filt.A, np.float64)
+        B = np.asarray(filt.Bv, np.float64)
+        pw = functools.partial(np.linalg.matrix_power, A)
+        W = np.stack([pw(TS - 1 - k) @ B for k in range(TS)])
+        KS = np.stack([pw(TS << r) for r in range(5)])
+        AW = np.stack([pw(TS * 32 * w) for w in range(MAX_WARPS)])
+        LB = np.stack([_blocks(pw(T << b)) for b in range(LB_BITS)])
+        out = np.concatenate([A.reshape(-1), B, np.asarray(filt.Cv, np.float64),
+                              [float(filt.D)], W.reshape(-1), KS.reshape(-1),
+                              AW.reshape(-1), pw(T).reshape(-1),
+                              LB.reshape(-1)]).astype(np.float32)
+        assert out.size == TILE_FLOATS
+        return out
+
+    return _kept(filt, ("tile", int(T)), make)
 
 
 def power_blocks(filt, m: int) -> np.ndarray:
     """A^m (float64, rounded once to float32) as its two 2x2 diagonal
-    blocks, cached on the filter."""
-    cache = filt._consts
-    key = ("power", int(m))
-    if key not in cache:
-        out = _blocks(np.linalg.matrix_power(np.asarray(filt.A, np.float64), m))
-        cache[key] = out.astype(np.float32)
-        cache[key].setflags(write=False)
-    return cache[key]
-
-
-@functools.lru_cache(maxsize=64)
-def _lane_powers(a_bytes: bytes) -> np.ndarray:
-    A = np.frombuffer(a_bytes).reshape(4, 4)
-    out = np.stack([_blocks(np.linalg.matrix_power(A, TS * lane))
-                    for lane in range(TS)]).astype(np.float32)
-    out.setflags(write=False)
-    return out
+    blocks, kept on the filter, read-only."""
+    return _kept(filt, ("power", int(m)),
+                 lambda: _blocks(_power(filt, m)).astype(np.float32))
 
 
 def lane_powers(filt) -> np.ndarray:
     """A^(32 l) for the lanes l = 0 .. 31 (float64, rounded once to
     float32) as their two 2x2 diagonal blocks, (32, 8): K5's step from a
-    warp's entry state to each lane's. Cached (also on the filter's host
-    cache), read-only."""
-    cache = filt._consts
-    if "lanes" not in cache:
-        cache["lanes"] = _lane_powers(np.ascontiguousarray(filt.A, np.float64).tobytes())
-    return cache["lanes"]
+    warp's entry state to each lane's. Kept on the filter, read-only."""
+    return _kept(filt, "lanes", lambda: np.stack(
+        [_blocks(_power(filt, TS * lane)) for lane in range(TS)]).astype(np.float32))
 
 
 def unpack(consts: np.ndarray) -> dict:

@@ -162,14 +162,9 @@ def _stft_pooled_frames(frames: torch.Tensor, rate: int):
 
     from soundscope_tpu_torch.ops import _build
 
-    lib = _build.library()
-    with torch.cuda.device(frames.device):
-        err = lib.ss_stft_pooled(
-            frames.data_ptr(), b, n, nw, hann.data_ptr(), g2.data_ptr(),
-            tw.data_ptr(), mid.data_ptr(), side.data_ptr(),
-            torch.cuda.current_stream(frames.device).cuda_stream)
-    _build.raise_on_error(lib, err, "K2 stft_pooled")
-    GLOBAL.count("launch.K2")
+    _build.launch("ss_stft_pooled", "K2 stft_pooled", frames.device,
+                  frames.data_ptr(), b, n, nw, hann.data_ptr(), g2.data_ptr(),
+                  tw.data_ptr(), mid.data_ptr(), side.data_ptr())
     return mid, side
 
 
@@ -198,13 +193,6 @@ def kernel_attributes() -> dict:
     card): registers per thread, static and dynamic shared memory bytes
     per CTA, local (spill) bytes per thread, threads per CTA and CTAs
     resident per SM."""
-    import ctypes
-
     from soundscope_tpu_torch.ops import _build
 
-    lib = _build.library()
-    out = (ctypes.c_int * 6)()
-    _build.raise_on_error(lib, lib.ss_stft_pooled_attrs(out), "K2 attributes")
-    keys = ("registers", "static_smem", "dynamic_smem", "local_bytes",
-            "threads", "blocks_per_sm")
-    return dict(zip(keys, out))
+    return _build.attributes("ss_stft_pooled_attrs")

@@ -34,7 +34,6 @@ from soundscope_tpu_torch.core import constants as C
 from soundscope_tpu_torch.core.device import upload
 from soundscope_tpu_torch.ops import iir_tile
 from soundscope_tpu_torch.ops.truepeak import true_peak_masked
-from soundscope_tpu_torch.utils.metrics import GLOBAL
 
 # samples per segment (CTA of 256 threads)
 TILE = 8192
@@ -90,26 +89,16 @@ def true_peak_stream(x: torch.Tensor, n_valid, rate: int):
 
     from soundscope_tpu_torch.ops import _build
 
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.ss_true_peak_stream(
-            x2.data_ptr(), nv.data_ptr(), per, taps.ctypes.data, factor, rows, n,
-            part[0].data_ptr(), part[1].data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.raise_on_error(lib, err, "K6 true_peak_stream")
-    GLOBAL.count("launch.K6")
+    _build.launch("ss_true_peak_stream", "K6 true_peak_stream", dev,
+                  x2.data_ptr(), nv.data_ptr(), per, taps.ctypes.data, factor, rows, n,
+                  part[0].data_ptr(), part[1].data_ptr(), out[0].data_ptr(),
+                  out[1].data_ptr())
     return out[0].reshape(batch), out[1].reshape(batch)
 
 
 def kernel_attributes(factor: int = 4) -> dict:
     """K6's resources at this factor (2 or 4) as the CUDA runtime reports
-    them (needs a card); the keys of ops/iir.rows_attributes."""
-    import ctypes
-
+    them (needs a card); the keys of ops/_build.ATTRIBUTE_KEYS."""
     from soundscope_tpu_torch.ops import _build
-    from soundscope_tpu_torch.ops.iir import ATTRIBUTE_KEYS
 
-    lib = _build.library()
-    res = (ctypes.c_int * 6)()
-    _build.raise_on_error(lib, lib.ss_true_peak_stream_attrs(factor, res), "K6 attributes")
-    return dict(zip(ATTRIBUTE_KEYS, res))
+    return _build.attributes("ss_true_peak_stream_attrs", factor)

@@ -57,9 +57,9 @@ from soundscope_tpu_torch.core.config import MeterConfig
 from soundscope_tpu_torch.core.device import upload
 from soundscope_tpu_torch.models.engine import AnalysisResult, _finish
 from soundscope_tpu_torch.ops import loudness as L
-from soundscope_tpu_torch.ops.biquad import BlockFilter, make_block_filter
+from soundscope_tpu_torch.ops.biquad import BlockFilter, kweight_filter
 from soundscope_tpu_torch.ops.iir import block_iir_stream
-from soundscope_tpu_torch.ops.kweight import channel_weights, kweight_cascade_ss
+from soundscope_tpu_torch.ops.kweight import channel_weights
 from soundscope_tpu_torch.ops.truepeak import _polyphase_taps, polyphase_outputs
 from soundscope_tpu_torch.parallel.mesh import mesh_device
 
@@ -80,7 +80,7 @@ def pad_for_mesh(n: int, cfg: MeterConfig, n_seq: int) -> int:
 @functools.lru_cache(maxsize=None)
 def _propagator(rate: int, block: int, nloc: int):
     """(A^nloc)^T in float64: the state propagator across one shard."""
-    filt = make_block_filter(kweight_cascade_ss(rate), block)
+    filt = kweight_filter(rate, block)
     return filt.power(nloc).T.copy()
 
 
@@ -93,7 +93,7 @@ def _setup(cfg: MeterConfig, x: torch.Tensor, nloc: int):
     if nloc % g:
         raise ValueError(f"a shard of {nloc} samples is no multiple of {g} "
                          "(pad with pad_for_mesh)")
-    filt = make_block_filter(kweight_cascade_ss(cfg.rate), cfg.block, x.device)
+    filt = kweight_filter(cfg.rate, cfg.block, x.device)
     return filt, upload(_propagator(cfg.rate, cfg.block, nloc), x.device)
 
 

@@ -50,8 +50,8 @@ from soundscope_tpu_torch.models import engine
 from soundscope_tpu_torch.ops import iir as IIR
 from soundscope_tpu_torch.ops import stft_pooled as K2
 from soundscope_tpu_torch.ops import truepeak_stream as K6
-from soundscope_tpu_torch.ops.biquad import make_block_filter
-from soundscope_tpu_torch.ops.kweight import channel_weights, kweight_cascade_ss
+from soundscope_tpu_torch.ops.biquad import kweight_filter
+from soundscope_tpu_torch.ops.kweight import channel_weights
 from soundscope_tpu_torch.tools.reference64 import analyze_reference, f64_stft_pooled
 from soundscope_tpu_torch.utils.metrics import launches
 
@@ -134,7 +134,7 @@ def _routes(xs: np.ndarray, rate: int, dev: torch.device) -> list:
     nv = torch.full((levels,), n, dtype=torch.int64, device=dev)
     h, g = cfg.subblock, engine.z_group(cfg)
     w = tuple(float(v) for v in channel_weights(2))
-    filt = make_block_filter(kweight_cascade_ss(rate), cfg.block, dev)
+    filt = kweight_filter(rate, cfg.block, dev)
 
     def k1():
         res = engine.analyze_batch_native(cfg, x4, nv)

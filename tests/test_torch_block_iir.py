@@ -15,6 +15,10 @@ Pins: y and s_final within 2e-5 abs for unit-variance input
 (tests/test_pallas_iir.py's pin for the Pallas kernel against block_iir).
 """
 
+import concurrent.futures
+import dataclasses
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,9 +27,12 @@ import torch
 import soundscope_tpu.ops.biquad as jbq
 from soundscope_tpu.ops.kweight import kweight_cascade_ss
 from soundscope_tpu.ops.pallas_iir import block_iir_pallas
+from soundscope_tpu_torch.core.config import MeterConfig
+from soundscope_tpu_torch.models.engine import analyze_batch_native
 from soundscope_tpu_torch.ops import iir as IIR
 from soundscope_tpu_torch.ops import iir_tile
-from soundscope_tpu_torch.ops.biquad import make_block_filter
+from soundscope_tpu_torch.ops import kweight as tkw
+from soundscope_tpu_torch.ops.biquad import kweight_filter, make_block_filter
 from soundscope_tpu_torch.utils.metrics import launches
 from tests.test_torch_iir_tile import _block_matrix, _refilter, _scan
 
@@ -194,3 +201,45 @@ def test_strided_input_and_empty_push():
     y0, s_empty = IIR.block_iir_stream(tf, torch.zeros((2, 0)), torch.from_numpy(s0))
     assert y0.shape == (2, 0)
     np.testing.assert_array_equal(s_empty.numpy(), s0)
+
+
+@pytest.mark.parametrize("rate", [44100, 48000, 96000, 192000])
+def test_kweight_filter_is_built_once_and_bit_identical(rate):
+    """kweight_filter: one BlockFilter per (rate, block, device), whose
+    tensors and kernel constants are make_block_filter's bit for bit; two
+    engine calls through it on one frames batch give the same bits."""
+    filt = kweight_filter(rate, 128, "cpu")
+    assert filt is kweight_filter(rate, 128, torch.device("cpu"))
+    assert filt is kweight_filter(rate)
+    own = make_block_filter(tkw.kweight_cascade_ss(rate), 128)
+    for name in ("Tt", "Wt", "Ot", "A_pows"):
+        assert torch.equal(getattr(filt, name), getattr(own, name))
+    np.testing.assert_array_equal(filt.A_block, own.A_block)
+    for T in (2048, 4096, 8192, 16384):
+        consts = iir_tile.tile_constants(filt, T)
+        np.testing.assert_array_equal(consts, iir_tile.tile_constants(own, T))
+        assert iir_tile.tile_constants(kweight_filter(rate, 128, "cpu"), T) is consts
+
+    cfg = MeterConfig(channels=2, rate=rate, max_blocks=0)
+    n = 128 * (rate // 64)                                  # 2 s
+    x = torch.from_numpy(np.random.default_rng(rate).standard_normal(
+        (2, 2, n // 128, 128)).astype(np.float32) * 0.1)
+    nv = torch.tensor([n, n - 777])
+    a, b = analyze_batch_native(cfg, x, nv), analyze_batch_native(cfg, x, nv)
+    for f in dataclasses.fields(a):
+        np.testing.assert_array_equal(getattr(a, f.name).numpy(), getattr(b, f.name).numpy())
+
+
+def test_kweight_filter_is_one_object_across_threads():
+    """Threads that ask at once for a filter not built yet all get the one
+    BlockFilter that later calls get."""
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(16) as pool:
+            futures = [pool.submit(kweight_filter, 32000, 64, "cpu") for _ in range(64)]
+            got = [f.result(timeout=60) for f in futures]
+    finally:
+        sys.setswitchinterval(switch)
+    assert all(f is got[0] for f in got)
+    assert got[0] is kweight_filter(32000, 64)
