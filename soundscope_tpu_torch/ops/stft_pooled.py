@@ -25,17 +25,18 @@ through shared memory, and the pairs k and 8192 - k in one thread, so the
 real-FFT split needs no exchange of its own; the band max reads the
 powers back once in bin order. The Hann window is formed on the card from
 a table of 1 - cos and sin, exact to a few ulps down to its edges.
-`twiddles_np` gives the pass, split and window tables (18 KB).
+`twiddles_np` gives the pass, split and window tables (32 KB).
 
-What bounds it on the H100: not memory. The 512-thread kernel before it
-(one CTA of 512 threads a window, mid and side packed into one complex
-FFT) used the whole register file, so one CTA ran per SM and a
-window's load, passes and pool ran in series between barriers: 28.06 ms
-at the frames cell's shape (64 x 240 s, 359,552 windows), 10.3x its
-2.71 ms FFT bound. At 256 threads and at most 128 registers, two
-independent CTAs share each SM, so one's shared-memory exchanges,
-barriers and load overlap the other's butterflies; PERF.md gives the
-measured time and the ablations of both designs.
+What bounds it on the H100: not memory but the instructions it issues
+and the latency between its barriers. At 256 threads and at most 128
+registers, two independent CTAs share each SM, so one's shared-memory
+exchanges, barriers and load overlap the other's butterflies. The
+butterflies are radix-2 decimation in time in a fused multiply-add form
+(six instructions a nontrivial butterfly), the split's twiddles come
+from a (cos, tan) table, the exchanges' addresses are one base a thread
+plus constants, and no thread selects between thread 0's self-paired
+groups and the others'. PERF.md gives the measured times, instruction
+counts and the ablations of this design and the ones before it.
 
 All N/2048 - 7 windows are computed: the TPU kernel's truncation to a
 multiple of its window chunk, and the tail fill around it, are not ported.
@@ -73,26 +74,40 @@ def rate_supported(rate: int) -> bool:
     return rate > 2 * C.SPECTRUM_FMAX_HZ
 
 
+def self_bins() -> np.ndarray:
+    """The first bin k of each of the kernel's 17 self pairs (k, 8192 - k):
+    256 + 512 s in group (0, 8) for s < 8, 512 (s - 7) in group (0, 0) for
+    s < 16 (4096 pairs with itself), then bin 0."""
+    s = np.arange(17)
+    return np.where(s < 8, 256 + 512 * s, np.where(s < 16, 512 * (s - 7), 0))
+
+
 def twiddles_np() -> np.ndarray:
-    """The kernel's tables as (2306, 2) float32 from float64: twiddles W^e,
+    """The kernel's tables as (4115, 2) float32 from float64: twiddles W^e,
     W = exp(-2 pi i / WIN), as (cos, -sin): pass 1's W^(2 l k1) at 32 k1 + l
-    (l, k1 < 32) and W^(64 j) (j < 256), pass 2's W^(64 u k2) at 16 k2 + u
-    (u, k2 < 16), the real-FFT split's W^e (e <= 256); then (1 - cos, sin)
-    of 2 pi e / WIN (e <= 512) for the Hann window."""
-    l, u = np.arange(32), np.arange(16)
-    e = np.concatenate([2 * np.outer(l, l).ravel(), 64 * np.arange(256),
-                        64 * np.outer(u, u).ravel(), np.arange(257)])
+    (l, k1 < 32), pass 2's W^(64 v k1) at 8 k1 + v (v < 8) and W^(64 u k2)
+    at 16 k2 + u (u, k2 < 16); then the real-FFT split's W^e (e <= 2048) as
+    (cos, tan), so that W^e = cos (1 - i tan) with |tan| <= 1; then (1 -
+    cos, sin) of 2 pi e / WIN (e <= 512) for the Hann window; then W^k of
+    the self pairs' bins (`self_bins`) as (cos, -sin)."""
+    l, u, v = np.arange(32), np.arange(16), np.arange(8)
+    e = np.concatenate([2 * np.outer(l, l).ravel(), 64 * np.outer(l, v).ravel(),
+                        64 * np.outer(u, u).ravel()])
     ang = 2.0 * np.pi * e.astype(np.float64) / WIN
+    split = 2.0 * np.pi * np.arange(2049, dtype=np.float64) / WIN
     hann = 2.0 * np.pi * np.arange(513, dtype=np.float64) / WIN
+    own = 2.0 * np.pi * self_bins().astype(np.float64) / WIN
     return np.concatenate([np.stack([np.cos(ang), -np.sin(ang)], axis=-1),
-                           np.stack([1.0 - np.cos(hann), np.sin(hann)], axis=-1)]
+                           np.stack([np.cos(split), np.tan(split)], axis=-1),
+                           np.stack([1.0 - np.cos(hann), np.sin(hann)], axis=-1),
+                           np.stack([np.cos(own), -np.sin(own)], axis=-1)]
                           ).astype(np.float32)
 
 
 @functools.lru_cache(maxsize=None)
 def _consts_np(rate: int):
     """Host constants of the kernel: Hann window (WIN,), squared gain of
-    the bins below Nyquist (WIN/2,), the tables (2306, 2) — all float32
+    the bins below Nyquist (WIN/2,), the tables (4115, 2) — all float32
     from float64. The kernel forms its window from the twiddles; the Hann
     table stays an argument of its C entry."""
     gain, _, _ = _pooled_gain_plan(WIN, rate, BANDS)

@@ -309,6 +309,20 @@ def test_k2_side_overflow_leaves_mid(cuda):
     assert np.isposinf(got[1][np.isposinf(want[1])]).all()
 
 
+def test_k2_mid_equals_side_on_a_silent_right_channel(cuda):
+    """With the right channel at zero the side (l - r) / 2 equals the mid
+    (l + r) / 2 sample for sample, and the mid and the side CTA of each
+    window run the same arithmetic, thread 0's split included: their
+    bands agree bit for bit, and the mid matches the plain version."""
+    x = _noise((3, 2, 16 * 40, 128), 31) * 3.0
+    x[:, 1] = 0.0
+    fr = x.to(cuda)
+    mid, side = K2.stft_pooled_frames(fr, 48000)
+    assert mid.shape == (3, 33, 128) and torch.equal(mid, side)
+    want = K2.stft_pooled_frames_plain(fr, 48000)[0]
+    assert float((mid - want).abs().max()) < 1e-3
+
+
 def test_engine_cuda_matches_cpu(cuda):
     cfg = MeterConfig(channels=2, rate=48000, max_blocks=0)
     x = _noise((2, 2, 2048, 128), 5)

@@ -223,7 +223,7 @@ def test_k2_rejects_what_it_cannot_pool():
 _T = 256            # threads per CTA
 _N = 16384          # window
 _H = _N // 2        # points of the packed complex FFT
-_TW_P1, _TW_WARP, _TW_P2, _TW_SPLIT, _TW_HANN = 0, 1024, 1280, 1536, 1793   # table offsets
+_TW_P1, _TW_WARP, _TW_P2, _TW_SPLIT, _TW_HANN, _TW_SELF = 0, 1024, 1280, 1536, 3585, 4098
 
 
 def _cu_switch(name, n):
@@ -248,6 +248,12 @@ def _cu_cos32_table():
     return _cu_switch("cos32_q", 8)
 
 
+@functools.lru_cache(maxsize=None)
+def _cu_tan32_table():
+    """tan(2 pi b / 32), b = 0..4, as written in the kernel source."""
+    return _cu_switch("tan32_q", 5)
+
+
 def _cos32(j):
     """The kernel's cos32(j): cos(2 pi j / 32) from its float32 constants."""
     c = _cu_cos32_table().astype(np.float64)
@@ -256,37 +262,87 @@ def _cos32(j):
     return (c[a] if a < 8 else 0.0) if a <= 8 else -(c[16 - a] if 16 - a < 8 else 0.0)
 
 
-def _rot32(j):
-    """W_32^j as the kernel's rot32 forms it (float32 constants)."""
-    j %= 32
-    return {0: 1.0, 8: -1j, 16: -1.0, 24: 1j}.get(j, _cos32(j) - 1j * _cos32(j - 8))
+def _bfly_form(e):
+    """The kernel's bfly for w = W_32^e (0 < e < 16, e != 8) from its
+    float32 constants: (f, s, cot), w = f (1 - i s) where |tan| <= 1 (cot
+    False: f = cos, s = tan), else w = f (s - i) (f = sin, s = cot)."""
+    c = _cu_cos32_table().astype(np.float64)
+    tn = _cu_tan32_table().astype(np.float64)
+    if e <= 4:
+        return c[e], tn[e], False
+    if e >= 12:
+        return -c[16 - e], -tn[16 - e], False
+    if e < 8:
+        return c[8 - e], tn[8 - e], True
+    return c[e - 8], -tn[e - 8], True
+
+
+def _fma_times(b, f, s, cot):
+    """w b as the kernel's FMA form computes it: f (p, q), (p, q) = (b.x +
+    s b.y, b.y - s b.x) or, in the cotangent form, (s b.x + b.y, s b.y -
+    b.x)."""
+    if cot:
+        p, q = s * b.real + b.imag, s * b.imag - b.real
+    else:
+        p, q = b.real + s * b.imag, b.imag - s * b.real
+    return f * p + 1j * (f * q)
 
 
 def _dft_registers(v):
-    """The kernel's in-register dft<N> over the last axis: radix-2 DIF
-    stages, then the bit-reversal renaming."""
+    """The kernel's in-register dft<N> over the last axis: the bit-reversal
+    renaming of the inputs, then radix-2 decimation-in-time stages of half
+    width h = 1, 2, ..., N / 2, each butterfly a +- w b with w = W_32^(16 i
+    / h): additions for w = 1, -i, else the FMA form."""
     v = np.array(v, np.complex128)
     n = v.shape[-1]
     bits = n.bit_length() - 1
-    s = n // 2
-    while s >= 1:
-        for j in range(0, n, 2 * s):
-            for i in range(s):
-                a, b = v[..., j + i].copy(), v[..., j + i + s].copy()
-                v[..., j + i] = a + b
-                v[..., j + i + s] = (a - b) * _rot32(16 // s * i)
-        s //= 2
     rev = [int(format(k, f"0{bits}b")[::-1], 2) for k in range(n)]
-    return v[..., rev]
+    a = v[..., rev]
+    h = 1
+    while h < n:
+        for j in range(0, n, 2 * h):
+            for i in range(h):
+                e = 16 * i // h
+                x, b = a[..., j + i].copy(), a[..., j + i + h].copy()
+                wb = b if e == 0 else -1j * b if e == 8 else _fma_times(b, *_bfly_form(e))
+                a[..., j + i], a[..., j + i + h] = x + wb, x - wb
+        h *= 2
+    return a
 
 
 def _table():
+    """The tables as complex (cos, -sin) entries; the split's and the
+    window's regions hold other pairs (`_split_table`, `_hann4`)."""
     tab = K2.twiddles_np().astype(np.float64)
     return tab[:, 0] + 1j * tab[:, 1]
 
 
+def _split_table():
+    """The split's (cos, tan)(2 pi e / 16384), e <= 2048, from its float32."""
+    tab = K2.twiddles_np()[_TW_SPLIT:_TW_HANN].astype(np.float64)
+    return tab[:, 0], tab[:, 1]
+
+
+def _split_twiddle(base, j):
+    """W^k, k = base + 512 j, as the kernel's split_pair reads it: (f, s,
+    cot, table element index) with W^k = f (1 - i s) (cot False) or f (s -
+    i); (cos, tan)(k) for j < 4, (sin, cot)(k) = (cos, tan)(4096 - k) for j
+    < 8 or (cos, -tan)(k - 4096) for j < 12, (cos, tan)(k) = (-cos,
+    -tan)(8192 - k) above."""
+    f, s = _split_table()
+    if j < 4:
+        e, sf, ss, cot = base + 512 * j, 1.0, 1.0, False
+    elif j < 8:
+        e, sf, ss, cot = 4096 - 512 * j - base, 1.0, 1.0, True
+    elif j < 12:
+        e, sf, ss, cot = base + 512 * j - 4096, 1.0, -1.0, True
+    else:
+        e, sf, ss, cot = 8192 - 512 * j - base, -1.0, -1.0, False
+    return sf * f[e], ss * s[e], cot, _TW_SPLIT + e
+
+
 def _s1(t, k1):
-    return 256 * k1 + (t ^ ((k1 & 3) << 3))
+    return 256 * k1 + (t ^ ((k1 & 1) << 3))
 
 
 def _s2(k1, k2, u):
@@ -322,7 +378,7 @@ def _hann4(dtype=np.float64):
     a) at a = 2 pi e / 16384 and the source's constants at b = 2 pi m / 32;
     past the middle the mirrored sample, e = 2 (256 - t) or 2 (255 - t) + 1
     at 31 - m. In `dtype`: float32 shows the kernel's rounding."""
-    vs = K2.twiddles_np()[_TW_HANN:].astype(dtype)
+    vs = K2.twiddles_np()[_TW_HANN:_TW_SELF].astype(dtype)
     vers = _cu_switch("vers32", 16).astype(dtype)
     t = np.arange(_T)
     out = np.empty((_T, 32, 2), dtype)
@@ -366,7 +422,7 @@ def _kernel_fft(z):
     # pass 2: thread (k1, u0) = (t >> 3, t & 7), units u0 and u0 + 8; the
     # warp part W^(64 (m2 >> 1) k1) of pass 1's twiddle first
     k1, u0 = t >> 3, t & 7
-    pw = [_TW_WARP + j * k1 for j in range(1, 8)]
+    pw = [_TW_WARP + 8 * k1 + j for j in range(1, 8)]
     r1, w2, p2 = [], [], []
     buf2 = np.full(_H, np.nan, np.complex128)
     for u in (u0, u0 + 8):
@@ -402,42 +458,50 @@ def _kernel_fft(z):
 
 def _kernel_split(A, B):
     """The split and its power writes: pair j of thread (k1, k2) is (k,
-    8192 - k), k = k1 + 32 k2 + 512 j, from A[j] and B[15 - j]; thread 0
-    pairs (0, 0) and (0, 8) each with itself and forms bin 4096 alone.
-    Returns the powers in bin order (8192,), the power-write element
-    indices (-1: idle) and the split's twiddle reads."""
+    8192 - k), k = k1 + 32 k2 + 512 j, from A[j] and B[15 - j], in every
+    thread; thread 0's groups (0, 0) and (0, 8) are their own partners, so
+    its pairs write its (0, 0) bins wrongly (and float 8192, past the
+    powers). Threads s < 17 then form thread 0's self pair s from the
+    operands it left in shared memory: B[s] with B[15 - s] (s < 8), A[j]
+    with A[16 - j] (j = s - 7), A[0] with itself (bin 0). Returns the
+    powers in bin order (8192,), the power-write element indices (-1:
+    idle) and the split-table reads."""
     tab = _table()
     t = np.arange(_T)
     lane, wp = t & 31, t >> 5
-    me = t == 0
+    base = lane + 32 * wp
     P = np.full(_H, np.nan)
-    reads = [_TW_SPLIT + lane + 32 * wp, np.full(_T, _TW_SPLIT + 256)]
-    wa, wb = tab[reads[0]], tab[reads[1]]
-    writes = []
+    writes, reads = [], []
 
-    def split_power(a, c, w):
+    def split_power(a, c, f, s, cot):
         er, ei = a.real + c.real, a.imag - c.imag
         dr, di = a.real - c.real, a.imag + c.imag
-        tr, ti = w.real * di + w.imag * dr, w.imag * di - w.real * dr
-        return (er + tr) ** 2 + (ei + ti) ** 2, (er - tr) ** 2 + (ei - ti) ** 2
+        o = _fma_times(di - 1j * dr, 1.0, s, cot)      # W^k O = f o, O = (di, -dr)
+        ox, oy = o.real, o.imag
+        pr, pi, nr, ni = er + f * ox, ei + f * oy, er - f * ox, ei - f * oy
+        return pr ** 2 + pi ** 2, nr ** 2 + ni ** 2
 
-    def put(k, p):
-        on = k >= 0
-        assert np.isnan(P[k[on]]).all()          # every bin written once
-        P[k[on]] = p[on]
-        writes.append(k)
-
+    own = base == 0                               # thread 0's generic writes
     for j in range(16):
-        hb = me & (j >= 8)
-        a = np.where(hb, B[:, j & 7], A[:, j])
-        c = np.where(me, A[:, (16 - j) & 15] if j < 8 else B[:, 23 - j], B[:, 15 - j])
-        base = wa if j < 8 else np.where(me, wb, wa * -1j)
-        ka = np.where(hb, 256 + 512 * (j - 8), lane + 32 * wp + 512 * j)
-        pa, pb = split_power(a, c, base * _rot32(j & 7))
-        put(ka, pa)
-        put(np.where(me & (j == 0), -1, _H - ka), pb)
-    pa, _ = split_power(A[:, 8], A[:, 8], -1j)
-    put(np.where(me, _H // 2, -1), pa)
+        f, s, cot, e = _split_twiddle(base, j)
+        pa, pb = split_power(A[:, j], B[:, 15 - j], f, s, cot)
+        for k, p in ((base + 512 * j, pa), (_H - base - 512 * j, pb)):
+            assert (k[own] % 512 == 0).all()      # (0, 0)'s bins, or 8192
+            assert np.isnan(P[k[~own]]).all()     # every other bin written once
+            P[k[~own]] = p[~own]
+            writes.append(k)
+        reads.append(e)
+    j = [s if s < 8 else (s - 7) % 9 for s in range(17)]     # s = 16: A[0]
+    a = np.array([B[0, j[s]] if s < 8 else A[0, j[s]] for s in range(17)])
+    c = np.array([B[0, 15 - j[s]] if s < 8 else A[0, (16 - j[s]) % 16] for s in range(17)])
+    k = K2.self_bins()
+    w = tab[_TW_SELF + np.arange(17)]             # (cos, -sin)
+    er, ei, dr, di = a.real + c.real, a.imag - c.imag, a.real - c.real, a.imag + c.imag
+    tr, ti = w.real * di + w.imag * dr, w.imag * di - w.real * dr
+    pa, pb = (er + tr) ** 2 + (ei + ti) ** 2, (er - tr) ** 2 + (ei - ti) ** 2
+    assert np.isnan(P[k]).all() and np.isnan(P[_H - k[:-1]][k[:-1] != 4096]).all()
+    P[k] = pa
+    P[(_H - k)[:-1]] = pb[:-1]                     # bin 4096 takes its second power
     assert not np.isnan(P).any()
     return P, writes, reads
 
@@ -475,6 +539,8 @@ def test_kernel_register_dft_constants_and_structure():
     c = _cu_cos32_table()
     want = np.cos(2 * np.pi * np.arange(8) / 32).astype(np.float32)
     np.testing.assert_array_equal(c, want)   # float64 rounded to float32
+    want = np.tan(2 * np.pi * np.arange(5) / 32).astype(np.float32)
+    np.testing.assert_array_equal(_cu_tan32_table(), want)
     rng = np.random.default_rng(1)
     for n in (16, 32):
         v = rng.standard_normal((3, n)) + 1j * rng.standard_normal((3, n))
@@ -506,19 +572,49 @@ def test_kernel_twiddle_factorisation():
     tab = _table()
     t = np.arange(_T)[:, None]
     k1 = np.arange(32)[None, :]
-    got = tab[_TW_P1 + 32 * k1 + (t & 31)] * tab[_TW_WARP + (t >> 5) * k1]
+    got = tab[_TW_P1 + 32 * k1 + (t & 31)] * tab[_TW_WARP + 8 * k1 + (t >> 5)]
     np.testing.assert_allclose(got, np.exp(-2j * np.pi * t * k1 / _H), rtol=0, atol=4e-7)
-    assert 7 * 31 < 256                        # the warp part's index
+    assert _TW_WARP + 8 * 31 + 7 < _TW_P2      # the warp part's (k1, v) rows
     u = np.arange(16)
     np.testing.assert_allclose(tab[_TW_P2 + 16 * u[None, :] + u[:, None]],
                                np.exp(-2j * np.pi * np.outer(u, u) / 256), rtol=0, atol=1e-7)
-    e = np.arange(257)
-    np.testing.assert_allclose(tab[_TW_SPLIT + e], np.exp(-2j * np.pi * e / _N), rtol=0, atol=1e-7)
+    e = np.arange(2049)
+    f, s = _split_table()
+    np.testing.assert_allclose(np.stack([f, s], axis=-1),
+                               np.stack([np.cos(2 * np.pi * e / _N), np.tan(2 * np.pi * e / _N)],
+                                        axis=-1), rtol=1e-7, atol=0)
     e = np.arange(513)
-    vs = K2.twiddles_np()[_TW_HANN:].astype(np.float64)
+    vs = K2.twiddles_np()[_TW_HANN:_TW_SELF].astype(np.float64)
     a = 2 * np.pi * e / _N
     np.testing.assert_allclose(vs, np.stack([1 - np.cos(a), np.sin(a)], axis=-1), rtol=1e-7, atol=0)
-    assert K2.twiddles_np().shape == (2306, 2)
+    k = K2.self_bins()
+    assert sorted(k) == sorted(set(k)) and (k % 256 == 0).all() and k.max() == 4096
+    np.testing.assert_allclose(tab[_TW_SELF:], np.exp(-2j * np.pi * k / _N), rtol=0, atol=1e-7)
+    assert K2.twiddles_np().shape == (4115, 2)
+
+
+def test_kernel_fma_twiddles():
+    """The FMA forms of the butterflies' and the split's twiddles: every
+    multiplier that enters an FMA (tan or cot) within [-1, 1], and the
+    factor times (1, -tan), or (cot, -1), gives W^e to 1e-7: the register
+    DFTs' W_32^e from the source's constants, and the split's W^k for
+    every k that a thread forms, k = base + 512 j with base <= 256, as the
+    kernel reads it from the table by its symmetries."""
+    for e in range(1, 16):
+        if e != 8:
+            f, s, cot = _bfly_form(e)
+            assert abs(s) <= 1.0, e
+            w = f * (s - 1j) if cot else f * (1 - 1j * s)
+            assert abs(w - np.exp(-2j * np.pi * e / 32)) < 1e-7, e
+    _, tn = _split_table()
+    assert (np.abs(tn) <= 1.0).all()
+    base = np.arange(257)
+    for j in range(16):
+        f, s, cot, e = _split_twiddle(base, j)
+        assert (np.abs(s) <= 1.0).all() and (e >= _TW_SPLIT).all() and (e < _TW_HANN).all()
+        w = f * (s - 1j) if cot else f * (1 - 1j * s)
+        k = base + 512 * j
+        assert np.abs(w - np.exp(-2j * np.pi * k / _N)).max() < 1e-7, j
 
 
 def test_kernel_hann_from_twiddles():
@@ -538,8 +634,9 @@ def test_kernel_hann_from_twiddles():
 def test_kernel_split_matches_numpy_rfft(side):
     """Load, packing, passes and split against np.fft.rfft of the windowed
     mid or side in float64, bin by bin below Nyquist (gain 1); the pass-3
-    reads of a pair's two groups and the bin-order power writes free of
-    bank conflicts."""
+    reads of a pair's two groups, the split's table reads and its bin-order
+    power writes free of bank conflicts (the 17 self pairs' writes, to bins
+    256 apart, share a bank: two writes of 17 threads a CTA)."""
     rng = np.random.default_rng(17 + side)
     l, r = rng.standard_normal((2, _N)).astype(np.float32)
     z = _kernel_load(l, r, side)
