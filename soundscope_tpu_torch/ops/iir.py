@@ -186,9 +186,9 @@ def _tile_checks(filt, group, ch, what):
 
 def _tile_rows(filt, x, n_valid, weights, group, factor, T, lookback, what):
     """Launch ss_kweight_energy_rows on the tile-scan core: factor 0 is K4
-    or K5 (the rows of nonzero weight), 2 or 4 is K3 (every row); `what`
-    names the kernel first. Returns (z, tp, sp); tp and sp are None for
-    factor 0."""
+    or K5 (the rows of nonzero weight), 2 or 4 is K3 (every row, its rows
+    times segments added to `k3.segments`); `what` names the kernel first.
+    Returns (z, tp, sp); tp and sp are None for factor 0."""
     b, ch, n, nv = _launchable(filt, x, n_valid, weights, what)
     _tile_checks(filt, group, ch, what)
     dev = x.device
@@ -214,6 +214,8 @@ def _tile_rows(filt, x, n_valid, weights, group, factor, T, lookback, what):
                   x.data_ptr(), nv.data_ptr(), consts.ctypes.data, taps.ctypes.data,
                   w.ctypes.data, factor, b, ch, n, group, T, lookback, sync.data_ptr(),
                   zr.data_ptr(), z.data_ptr(), ptr(tp_part), ptr(sp_part), ptr(tp), ptr(sp))
+    if factor:
+        GLOBAL.count("k3.segments", rows * nseg)
     return z, tp, sp
 
 
@@ -225,7 +227,9 @@ def kweight_energy_tp_prefix(filt: BlockFilter, x: torch.Tensor,
     x: (b, ch, N) or (b*ch, N) float32, N % 128 == 0 on CUDA. n_valid: (b,)
     integer valid lengths. weights: the ch channel weights. rate: the
     sample rate, which must need oversampling (< 192 kHz). On CUDA the
-    group divides 32. Returns (z (b, N/group), tp (rows,), sp (rows,)).
+    group divides 32, and the launch adds its rows times its segments of
+    TP_TILE to the counter `k3.segments`. Returns (z (b, N/group), tp
+    (rows,), sp (rows,)).
     """
     factor = C.true_peak_factor(rate)
     if factor == 1:

@@ -494,6 +494,36 @@ def test_rows_energy_kernels_on_few_long_rows(cuda, kernel, rate, group):
     _energy_close(got[0], want[0], (rate + 5) // 10, group)
 
 
+def test_k3_batch_invariant_past_2_31_elements(cuda):
+    """One stereo track of 2^27 samples (46.6 min at 48 kHz), ragged with
+    signal in its padding, through K3 alone and then as the last of 9
+    tracks, whose rows x N (18 x 2^27) pass 2^31 elements, so that its rows
+    start at element 2^31: z, tp and sp are the same bits, and each launch
+    adds its rows times its segments to `k3.segments`."""
+    n, b, rate = 1 << 27, 9, 48000
+    assert 2 * b * n > 2**31 and 2 * (b - 1) * n == 2**31
+    g = torch.Generator(device=cuda)
+    g.manual_seed(2**31 + 2201)
+    x = torch.empty((b, 2, n), device=cuda).normal_(generator=g).mul_(0.1)
+    x[:, :, n // 3: n // 2] *= 20.0                   # a loud stretch beside a quiet one
+    nv = torch.tensor([n - 48000 * 7 * i - 333 for i in range(b)], device=cuda)
+    filt = make_block_filter(kweight_cascade_ss(rate), 128, cuda)
+    w = (1.0, 1.0)
+    nseg = -(-n // IIR.TP_TILE)
+    k0 = GLOBAL.counter("k3.segments")
+    alone = IIR.kweight_energy_tp_prefix(filt, x[b - 1:], nv[b - 1:], w, rate, 32)
+    assert GLOBAL.counter("k3.segments") - k0 == 2 * nseg
+    batch = IIR.kweight_energy_tp_prefix(filt, x, nv, w, rate, 32)
+    assert GLOBAL.counter("k3.segments") - k0 == 2 * nseg + 2 * b * nseg
+    torch.cuda.synchronize()
+    assert alone[0].shape == (1, n // 32) and batch[0].shape == (b, n // 32)
+    for a, got in ((alone[0][0], batch[0][b - 1]), (alone[1], batch[1][-2:]),
+                   (alone[2], batch[2][-2:])):
+        assert torch.equal(a.view(torch.int32), got.view(torch.int32))
+    assert float(alone[1].min()) > 0.0
+    assert bool((alone[0][0, -(-int(nv[-1]) // 32):] == 0).all())    # nothing past n_valid
+
+
 @pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5", "K6", "K7"])
 def test_kernels_on_nonfinite_input(cuda, kernel):
     """NaN, +Inf, -Inf and the bit pattern 0xFFFFFFFF in the input: the
