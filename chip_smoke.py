@@ -2163,7 +2163,8 @@ def main() -> int:
     for rate, b, ch, group, ks in [
             (48000, 3, 2, 32, "K3 K4 K5 K6"), (48000, 3, 2, 1, "K3 K4 K5"),
             (44100, 3, 2, 1, "K3 K4 K5 K6"), (96000, 3, 2, 32, "K3 K6"),
-            (48000, 1, 2, 32, "K3 K4 K5 K6"), (192000, 1, 6, 32, "K4 K5")]:
+            (48000, 1, 2, 32, "K3 K4 K5 K6"), (192000, 1, 6, 32, "K4 K5"),
+            (48000, 2, 6, 32, "K3"), (44100, 3, 6, 1, "K3"), (48000, 3, 1, 32, "K3")]:
         n = 226 * 128
         x = rows_noise(gen, (b, ch, n), dev)
         nv = torch.tensor([n, n - 700, n // 2][:b], device=dev)
@@ -2189,6 +2190,9 @@ def main() -> int:
     x_slice, nv_slice = x_lib[:64], nv_lib[:32]         # 32 tracks, full length
     errs = {}
     errs.update(rows_compare(IIR, K6, filt_fn(48000), x_single, nv_single, 48000, 32, ["K3"]))
+    # K3 on the tickets of a 5.1 file's rows, at 48 kHz
+    k3_51 = rows_compare(IIR, K6, filt_fn(48000), x_51, nv_51, 48000, 32, ["K3"])
+    errs["K3"] = max(errs["K3"], k3_51["K3"])
     errs.update(rows_compare(IIR, K6, filt_fn(192000), x_51, nv_51, 192000, 32,
                              ["K4", "K5"]))
     lib_errs = rows_compare(IIR, K6, filt_fn(48000), x_slice, nv_slice, 48000, 32,
@@ -2200,8 +2204,8 @@ def main() -> int:
     rows_compare(IIR, K6, filt_fn(48000), x_long, nv_long, 48000, 32, ["K3", "K4"])
     rows_compare(IIR, K6, filt_fn(44100), x_long, nv_long, 44100, 1, ["K3", "K4"])
     for factor in (4, 2):
-        print(f"k3 attributes (factor {factor}, T {IIR.TP_TILE}): "
-              f"{json.dumps(IIR.rows_attributes(factor, IIR.LOOKBACK))}")
+        print(f"k3 attributes (k3_tile_tracks, factor {factor}, T {IIR.TP_TILE}): "
+              f"{json.dumps(IIR.rows_attributes(factor, IIR.LOOKBACK, tracks=True))}")
     print(f"k4 attributes (k5_tile, T {IIR.CHAIN_TILE}, look-back {IIR.LOOKBACK}): "
           f"{json.dumps(IIR.rows_attributes(0, IIR.LOOKBACK))}")
     print(f"k5 attributes (k5_tile, row tickets, T {IIR.CHAIN_TILE}, look-back 0): "
@@ -2220,6 +2224,8 @@ def main() -> int:
                 filt_fn(192000), x_51, nv_51, w6, 32),)),
             ("K3 single-file shape", lambda: IIR.kweight_energy_tp_prefix(
                 filt_fn(48000), x_single, nv_single, w2, 48000, 32)),
+            ("K3 5.1 shape at 48 kHz", lambda: IIR.kweight_energy_tp_prefix(
+                filt_fn(48000), x_51, nv_51, w6, 48000, 32)),
             ("K4 5.1 shape", lambda: (IIR.kweight_energy_prefix(
                 filt_fn(192000), x_51, nv_51, w6, 32),))]:
         a, b = fn(), fn()

@@ -1,12 +1,13 @@
 // The tile-scan core of the K-weighting kernels: K1 (iir_chunked.cu), K3,
-// K4, K5 (iir_rows.cu) and the streaming filter K7 (block_iir.cu). Five
-// bodies on one core: K1 sums steps and runs the FIR, K3 writes group sums
-// and runs the FIR, K4 and K5 write group sums (one kernel, k5_tile, at
-// two look-back depths), K7 writes y and the row's end state from a
-// carried state s0 (tile_loop's S0 mode, below). K5 with one or two
-// weighted channels takes the core's tile, matrices and carry records in a
-// kernel of its own (iir_rows.cu, k5_tile_tracks: tickets of one track's
-// segment of both channels in one tile). The true peak K6
+// K4, K5 (iir_rows.cu) and the streaming filter K7 (block_iir.cu). Four
+// bodies on one core's tile_loop: K1 sums steps and runs the FIR, K4 and
+// K5 write group sums (one kernel, k5_tile, at two look-back depths), K7
+// writes y and the row's end state from a carried state s0 (tile_loop's
+// S0 mode, below). K3, which writes group sums and runs the FIR, and K5
+// with one or two weighted channels take the core's tile, matrices and
+// carry records in kernels of their own (iir_rows.cu, k3_tile_tracks and
+// k5_tile_tracks: tickets of one track's segment of its channels in one
+// tile, or K3's of one row's segment). The true peak K6
 // (truepeak_stream.cu) walks the same tiles with no scan (tile_walk).
 //
 // Each runs the 4-state recurrence s <- A s + B x, y = C s + D x in the
@@ -605,12 +606,13 @@ cudaError_t persistent_grid(K kernel, int P, size_t smem, int64_t ntickets, int*
 }
 
 // out[6]: registers, static smem, dynamic smem, local (spill) bytes per
-// thread, threads, CTAs per SM, for P threads a CTA
+// thread, threads, CTAs per SM, for P threads a CTA and `smem` bytes of
+// dynamic shared memory (the core's two tiles unless given)
 template <class K>
-void kernel_attrs(K kernel, int P, int* out) {
+void kernel_attrs(K kernel, int P, int* out, size_t smem = 0) {
   cudaFuncAttributes fa;
   if (cudaFuncGetAttributes(&fa, kernel) != cudaSuccess) return;
-  const size_t smem = tile_smem_bytes(P);
+  if (smem == 0) smem = tile_smem_bytes(P);
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int per_sm = 0;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, P, smem);

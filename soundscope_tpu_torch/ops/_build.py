@@ -53,16 +53,19 @@ _ENTRIES = (
     ("ss_stft_pooled", [_P, _I64, _I64, _I64] + [_P] * 6),
     # out[6]: K2's registers, smem, spills, threads, CTAs per SM
     ("ss_stft_pooled_attrs", [_P]),
-    # x, n_valid, consts, taps, weights (host), factor, b, ch, n, group, T,
-    # lookback, sync, zr, z, tp_part, sp_part, tp, sp, stream: K3, K4, K5
-    # over rows
+    # x, n_valid, consts, weights (host), b, ch, n, group, T, lookback,
+    # sync, zr, z, stream: K4, K5 over rows
     ("ss_kweight_energy_rows",
-     [_P] * 5 + [_INT, _I64, _INT, _I64, _I64, _I64, _INT] + [_P] * 8),
+     [_P] * 4 + [_I64, _INT, _I64, _I64, _I64, _INT] + [_P] * 4),
+    # x, n_valid, consts, lane powers, taps, weights (host), factor, b, ch,
+    # n, group, Tc, sync, zr, z, tp_part, sp_part, tp, sp, stream: K3
+    ("ss_kweight_energy_tp_tracks",
+     [_P] * 6 + [_INT, _I64, _INT, _I64, _I64, _I64] + [_P] * 8),
     # x, n_valid, consts, lane powers, weights (host), b, ch, n, group, T,
     # Tc, sync, z, skipped, stream: K5 on track tickets
     ("ss_kweight_energy_chain", [_P] * 5 + [_I64, _INT, _I64, _I64, _I64, _I64] + [_P] * 4),
-    # factor, T, lookback, tracks, out[6]: K3's (factor 2, 4) or K4's / K5's
-    # (0) resources
+    # factor, T, lookback, tracks, out[6]: K3's (factor 2, 4) or K4's /
+    # K5's (0) resources
     ("ss_kweight_energy_rows_attrs", [_INT, _I64, _INT, _INT, _P]),
     # x, n_valid, rows per length, taps (host), factor, rows, n, tp_part,
     # sp_part, tp, sp, stream: K6

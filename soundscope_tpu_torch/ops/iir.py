@@ -26,21 +26,32 @@ On the card (csrc/iir_rows.cu) all three run the tile-scan core of
 csrc/iir_tile.cuh (host side ops/iir_tile.py): one launch that reads the
 input once, each segment's entry state taken from the segments before it,
 each thread refiltering 32 samples from shared memory and writing group
-sums (g | 32). K3 (`k3_tile`, segments of TP_TILE) runs K1's polyphase FIR
-beside them over every row; K4 (`k5_tile` with a look-back, segments of
-CHAIN_TILE) runs over the rows of nonzero weight; both write group sums
-per row, and a second pass adds the channels in order into z. K3 and K4,
-which serve a few long rows, take each segment's state through a fixed
-look-back of LOOKBACK segments, which shortens a row's chain of waits
-LOOKBACK + 1 times. K5's many tracks keep the plain chain
-(`k5_tile_tracks`) on tickets of one track's segment: `chain_segment`
-samples of every channel of nonzero weight in one tile of CHAIN_TILE
-samples, the channels' group sums added in order in the tile and z
-written by the same launch. All three skip the segments of a padded track
-that start past n_valid; K5 with more than TRACK_CHANNELS weighted
-channels runs K4's kernel without the look-back, a ticket per row, and
-neither skips nor writes z itself. See those files for the designs and
-what bounds them.
+sums (g | 32). K3 runs K1's polyphase FIR beside them over every channel,
+weight 0 too, for its peaks. K3 and K4, which serve a few long rows, take
+each segment's state through a fixed look-back of LOOKBACK segments,
+which shortens a row's chain of waits LOOKBACK + 1 times. K3 is one
+kernel, `k3_tile_tracks`, that adds y^2 in registers and leaves its group
+sums in the tile, on two kinds of ticket chosen by the channel count:
+
+* files of 1 to K3_TRACK_CHANNELS channels (mono, stereo): one file's
+  segment, `k3_segment` samples of every channel in one tile of TP_TILE
+  samples, the channels' weighted group sums added in order in the tile
+  and z written by the same launch: no scratch of group sums per row and
+  no second pass;
+* more channels (5.1): one row's segment of TP_TILE samples, its weighted
+  group sums written per row, then `channel_sum` adds the channels in
+  order into z. Six channels do not split one tile into equal whole
+  warps; as six rows of their own they are as long as a mono file's.
+
+K4 (`k5_tile` with a look-back, segments of CHAIN_TILE) runs over the rows
+of nonzero weight, writes group sums per row, and `channel_sum` adds
+them. K5's many tracks keep the plain chain (`k5_tile_tracks`) on tickets
+of one track's segment: `chain_segment` samples of every channel of
+nonzero weight in one tile of CHAIN_TILE samples, z written by the same
+launch. All three skip the segments of a padded track that start past
+n_valid; K5 with more than TRACK_CHANNELS weighted channels runs K4's
+kernel without the look-back, a ticket per row, and neither skips nor
+writes z itself. See those files for the designs and what bounds them.
 
 K7 (csrc/block_iir.cu, replaces `block_iir_pallas`, pallas_call at
 ``pallas_iir.py:67``) filters with carried state: `block_iir_stream(filt,
@@ -96,9 +107,27 @@ def chain_segment(channels: int) -> int:
     return CHAIN_TILE // channels
 
 
+# channels up to which K3's ticket is one file's segment of all of them
+# (csrc/iir_rows.cu: K3_TRACK_CH, the channels a tile's rows are cut for);
+# a file of more takes a ticket per row
+K3_TRACK_CHANNELS = 2
+
+
+def k3_segment(channels: int) -> int:
+    """Samples of each of a file's `channels` channels (1 to
+    K3_TRACK_CHANNELS) in one of K3's track tickets: one tile of TP_TILE
+    samples split between them, whole warps each: 8,192 mono, 4,096
+    stereo."""
+    if not 1 <= channels <= K3_TRACK_CHANNELS:
+        raise ValueError(f"K3's track tickets take 1 to {K3_TRACK_CHANNELS} channels, "
+                         f"got {channels}")
+    return TP_TILE // channels
+
+
 # look-back depth of K3, K4 and K7 (csrc/iir_tile.cuh: TILE_LOOKBACK): a
-# row of N samples is N / (T (LOOKBACK + 1)) hops of its chain, 62 for K3
-# at 2^24 samples, 124 for K4; K5 keeps 0
+# row of N samples is N / (T (LOOKBACK + 1)) hops of its chain, 124 for
+# K3's stereo tracks at 2^24 samples (62 on row tickets), 124 for K4; K5
+# keeps 0
 LOOKBACK = 32
 
 
@@ -184,38 +213,59 @@ def _tile_checks(filt, group, ch, what):
         raise ValueError(f"{what} takes at most {iir_tile.MAX_CH} channels, got {ch}")
 
 
-def _tile_rows(filt, x, n_valid, weights, group, factor, T, lookback, what):
-    """Launch ss_kweight_energy_rows on the tile-scan core: factor 0 is K4
-    or K5 (the rows of nonzero weight), 2 or 4 is K3 (every row, its rows
-    times segments added to `k3.segments`); `what` names the kernel first.
-    Returns (z, tp, sp); tp and sp are None for factor 0."""
+def _tile_rows(filt, x, n_valid, weights, group, T, lookback, what):
+    """Launch ss_kweight_energy_rows on the tile-scan core: K4 or K5 over
+    the rows of nonzero weight, then `channel_sum`; `what` names the kernel
+    first. Returns z."""
     b, ch, n, nv = _launchable(filt, x, n_valid, weights, what)
     _tile_checks(filt, group, ch, what)
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
-    consts = iir_tile.tile_constants(filt, T)
-    taps = iir_tile.fir_taps(max(factor, 1))
     w = np.asarray([float(v) for v in weights], np.float32)
-    rows, nseg = b * ch, -(-n // T)
-    active = rows if factor else b * int(np.count_nonzero(w))
-    sync = iir_tile.sync_buffer(active, nseg, dev)
-    zr = torch.empty((rows, n // group), **f32)
+    sync = iir_tile.sync_buffer(b * int(np.count_nonzero(w)), -(-n // T), dev)
+    zr = torch.empty((b * ch, n // group), **f32)
     z = torch.empty((b, n // group), **f32)
-    tp_part, sp_part, tp, sp = ([torch.empty(s, **f32) for s in
-                                 ((rows, nseg), (rows, nseg), (rows,), (rows,))]
-                                if factor else [None] * 4)
 
     from soundscope_tpu_torch.ops import _build
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     _build.launch("ss_kweight_energy_rows", what, dev,
-                  x.data_ptr(), nv.data_ptr(), consts.ctypes.data, taps.ctypes.data,
-                  w.ctypes.data, factor, b, ch, n, group, T, lookback, sync.data_ptr(),
-                  zr.data_ptr(), z.data_ptr(), ptr(tp_part), ptr(sp_part), ptr(tp), ptr(sp))
-    if factor:
-        GLOBAL.count("k3.segments", rows * nseg)
+                  x.data_ptr(), nv.data_ptr(), iir_tile.tile_constants(filt, T).ctypes.data,
+                  w.ctypes.data, b, ch, n, group, T, lookback, sync.data_ptr(),
+                  zr.data_ptr(), z.data_ptr())
+    return z
+
+
+def _k3_tile(filt, x, n_valid, weights, group, factor, what):
+    """Launch ss_kweight_energy_tp_tracks: K3 (`k3_tile_tracks`) on tickets
+    of one file's segment of its 1 to K3_TRACK_CHANNELS channels, or of one
+    row's segment then `channel_sum` for more channels, then `peaks_pass`.
+    Adds the rows times their segments of TP_TILE to `k3.segments` and the
+    tickets of files, b ceil(N / k3_segment(ch)) or 0, to
+    `k3.track_tickets`. Returns (z, tp, sp)."""
+    b, ch, n, nv = _launchable(filt, x, n_valid, weights, what)
+    _tile_checks(filt, group, ch, what)
+    dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    tracks = ch <= K3_TRACK_CHANNELS
+    Tc = k3_segment(ch) if tracks else TP_TILE
+    rows, nseg = b * ch, -(-n // Tc)
+    w = np.asarray([float(v) for v in weights], np.float32)
+    sync = iir_tile.sync_buffer(rows, nseg, dev)
+    z = torch.empty((b, n // group), **f32)
+    zr = None if tracks else torch.empty((rows, n // group), **f32)
+    tp_part, sp_part, tp, sp = [torch.empty(s, **f32) for s in
+                                ((rows, nseg), (rows, nseg), (rows,), (rows,))]
+
+    from soundscope_tpu_torch.ops import _build
+
+    _build.launch("ss_kweight_energy_tp_tracks", what, dev,
+                  x.data_ptr(), nv.data_ptr(), iir_tile.tile_constants(filt, Tc).ctypes.data,
+                  iir_tile.lane_powers(filt).ctypes.data, iir_tile.fir_taps(factor).ctypes.data,
+                  w.ctypes.data, factor, b, ch, n, group, Tc, sync.data_ptr(),
+                  None if zr is None else zr.data_ptr(), z.data_ptr(),
+                  tp_part.data_ptr(), sp_part.data_ptr(), tp.data_ptr(), sp.data_ptr())
+    GLOBAL.count("k3.segments", rows * -(-n // TP_TILE))
+    GLOBAL.count("k3.track_tickets", b * nseg if tracks else 0)
     return z, tp, sp
 
 
@@ -227,17 +277,21 @@ def kweight_energy_tp_prefix(filt: BlockFilter, x: torch.Tensor,
     x: (b, ch, N) or (b*ch, N) float32, N % 128 == 0 on CUDA. n_valid: (b,)
     integer valid lengths. weights: the ch channel weights. rate: the
     sample rate, which must need oversampling (< 192 kHz). On CUDA the
-    group divides 32, and the launch adds its rows times its segments of
-    TP_TILE to the counter `k3.segments`. Returns (z (b, N/group), tp
-    (rows,), sp (rows,)).
+    group divides 32, and the call is one launch of `k3_tile_tracks`:
+    files of 1 to K3_TRACK_CHANNELS channels on tickets of a file's
+    segment (`k3_segment(ch)` samples a channel, z written by the launch),
+    more channels on tickets of a row's segment of TP_TILE, then
+    `channel_sum`; either then `peaks_pass`. The call adds its rows times
+    their segments of TP_TILE to the counter `k3.segments`, and its
+    tickets of files, b ceil(N / k3_segment(ch)) or 0, to
+    `k3.track_tickets`. Returns (z (b, N/group), tp (rows,), sp (rows,)).
     """
     factor = C.true_peak_factor(rate)
     if factor == 1:
         raise ValueError("K3 needs an oversampling true-peak factor (rate < 192 kHz)")
     if x.device.type == "cpu":
         return kweight_energy_tp_prefix_plain(filt, x, n_valid, weights, rate, group)
-    return _tile_rows(filt, x, n_valid, weights, group, factor, TP_TILE, LOOKBACK,
-                      "K3 kweight_energy_tp_prefix")
+    return _k3_tile(filt, x, n_valid, weights, group, factor, "K3 kweight_energy_tp_prefix")
 
 
 def kweight_energy_prefix(filt: BlockFilter, x: torch.Tensor,
@@ -246,9 +300,8 @@ def kweight_energy_prefix(filt: BlockFilter, x: torch.Tensor,
     CUDA the group divides 32."""
     if x.device.type == "cpu":
         return kweight_energy_prefix_plain(filt, x, n_valid, weights, group)
-    z, _, _ = _tile_rows(filt, x, n_valid, weights, group, 0, CHAIN_TILE, LOOKBACK,
-                         "K4 kweight_energy_prefix")
-    return z
+    return _tile_rows(filt, x, n_valid, weights, group, CHAIN_TILE, LOOKBACK,
+                      "K4 kweight_energy_prefix")
 
 
 def kweight_energy_chain(filt: BlockFilter, x: torch.Tensor,
@@ -269,7 +322,7 @@ def kweight_energy_chain(filt: BlockFilter, x: torch.Tensor,
     na = int(np.count_nonzero(w))
     if not 1 <= na <= TRACK_CHANNELS:
         b, _, n = rows_shape(x, weights)
-        z, _, _ = _tile_rows(filt, x, n_valid, weights, group, 0, CHAIN_TILE, 0, what)
+        z = _tile_rows(filt, x, n_valid, weights, group, CHAIN_TILE, 0, what)
         GLOBAL.count("k5.segments", b * na * -(-n // CHAIN_TILE))
         return z
     b, ch, n, nv = _launchable(filt, x, n_valid, weights, what)
@@ -302,12 +355,13 @@ def _skipped_cell(device: torch.device) -> torch.Tensor:
 
 
 def rows_attributes(factor: int, lookback: int, tracks: bool = False) -> dict:
-    """Resources of K3's kernel (factor 2 or 4, at TP_TILE) or of K4's
-    (factor 0, lookback LOOKBACK) or K5's (factor 0, lookback 0: on track
-    tickets if `tracks`, else on row tickets), at CHAIN_TILE, as the CUDA
-    runtime reports them (needs a card): registers per thread, static and
-    dynamic shared memory bytes per CTA, local (spill) bytes per thread,
-    threads per CTA and CTAs per SM."""
+    """Resources of K3's kernel `k3_tile_tracks` (factor 2 or 4, at TP_TILE,
+    groups of 32; both of its tickets) or of K4's (factor 0, lookback
+    LOOKBACK) or K5's (factor 0, lookback 0: on track tickets if `tracks`,
+    else on row tickets), at CHAIN_TILE, as the CUDA runtime reports them
+    (needs a card): registers per thread, static and dynamic shared memory
+    bytes per CTA, local (spill) bytes per thread, threads per CTA and CTAs
+    per SM."""
     from soundscope_tpu_torch.ops import _build
 
     return _build.attributes("ss_kweight_energy_rows_attrs", factor,

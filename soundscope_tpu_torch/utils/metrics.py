@@ -17,11 +17,15 @@ time goes and what it counts:
   (`reset()` clears the spans alone): `launch.K1` ... `launch.K7` (one per
   kernel launch), `h2d.bytes` and `h2d.copies` (core/device.upload),
   `kernels.builds` (nvcc runs of ops/_build.build), `k3.segments` (K3's
-  rows times its segments of 8,192 samples) and `k5.segments` (K5's
-  tickets times its weighted channels), both on the card alone, from the
-  shapes, `k1.steps` (K1's rows times its steps) and `k2.windows` (K2's
-  tracks times its windows), the last two on either device, from the
-  shapes. The pooled spectrogram's call is the span `stft.pooled`.
+  rows times its segments of 8,192 samples), `k3.track_tickets` (K3's
+  tickets of one file's segment of each of its one or two channels:
+  files times segments of 8,192 / channels; 0 where a file has more
+  channels and K3's tickets are its rows' segments) and
+  `k5.segments` (K5's tickets times its weighted channels), all three on
+  the card alone, from the shapes, `k1.steps` (K1's rows times its
+  steps) and `k2.windows` (K2's tracks times its windows), the last two
+  on either device, from the shapes. The pooled spectrogram's call is the
+  span `stft.pooled`.
 * `count_on_device(name, cell)` adds a one-element integer tensor that
   kernels add to (`k5.segments_skipped`, K5's channel segments past
   n_valid, one add per CTA): the host reads it, and waits for the device,

@@ -203,15 +203,18 @@ def test_k1_k5_two_launches_bit_identical(cuda):
 
 
 def test_k1_k5_attributes(cuda):
-    for attrs, threads in ((K1.kernel_attributes(4, 8192), 256),
-                           (K1.kernel_attributes(1, 16384), 512),
-                           (IIR.rows_attributes(4, IIR.LOOKBACK), IIR.TP_TILE // 32),
-                           (IIR.rows_attributes(2, IIR.LOOKBACK), IIR.TP_TILE // 32),
-                           (IIR.rows_attributes(0, IIR.LOOKBACK), IIR.CHAIN_TILE // 32),
-                           (IIR.rows_attributes(0, 0), IIR.CHAIN_TILE // 32),
-                           (IIR.rows_attributes(0, 0, tracks=True), IIR.CHAIN_TILE // 32)):
+    """Each kernel's two tiles: a halo row and a row of 32 samples a
+    thread, K3's a halo row for each of two channels."""
+    for attrs, threads, halos in ((K1.kernel_attributes(4, 8192), 256, 1),
+                                  (K1.kernel_attributes(1, 16384), 512, 1),
+                                  (IIR.rows_attributes(4, IIR.LOOKBACK), IIR.TP_TILE // 32, 2),
+                                  (IIR.rows_attributes(2, IIR.LOOKBACK), IIR.TP_TILE // 32, 2),
+                                  (IIR.rows_attributes(0, IIR.LOOKBACK), IIR.CHAIN_TILE // 32, 1),
+                                  (IIR.rows_attributes(0, 0), IIR.CHAIN_TILE // 32, 1),
+                                  (IIR.rows_attributes(0, 0, tracks=True),
+                                   IIR.CHAIN_TILE // 32, 1)):
         assert attrs["threads"] == threads and attrs["blocks_per_sm"] >= 1
-        assert attrs["dynamic_smem"] == 2 * 16 * 8 * (threads + 1)
+        assert attrs["dynamic_smem"] == 2 * 16 * 8 * (threads + halos)
 
 
 @pytest.mark.parametrize("rate", [48000, 44100, 96000])
@@ -398,15 +401,35 @@ def _rows_case(kernel, rate, b, ch, group, lengths=None):
     _rows_case("K5", 44100, 3, 2, 1, "inside"), _rows_case("K5", 44100, 3, 2, 1, "padded"),
     _rows_case("K5", 192000, 3, 6, 32, "boundary"), _rows_case("K5", 192000, 3, 6, 32, "padded"),
     _rows_case("K5", 48000, 2000, 2, 32, "many"),
+    # K3 on track tickets: stereo (4,096 a channel) and mono (8,192) at 48
+    # kHz (g = 32), 44.1 kHz (g = 1) and 96 kHz (factor 2, g = 32 and 1,
+    # where a thread's group sums meet the next row's FIR halo); rows of
+    # 81 and 40 track segments, past the look-back's 33
+    _rows_case("K3", 48000, 3, 2, 32, "inside"), _rows_case("K3", 48000, 3, 2, 32, "boundary"),
+    _rows_case("K3", 48000, 3, 2, 32, "padded"), _rows_case("K3", 48000, 3, 1, 32, "inside"),
+    _rows_case("K3", 48000, 3, 1, 32, "padded"),
+    _rows_case("K3", 44100, 3, 2, 1, "inside"), _rows_case("K3", 44100, 3, 2, 1, "padded"),
+    _rows_case("K3", 44100, 3, 1, 1, "boundary"),
+    _rows_case("K3", 96000, 3, 2, 32, "inside"), _rows_case("K3", 96000, 3, 1, 32, "padded"),
+    _rows_case("K3", 96000, 3, 2, 1, "boundary"),
+    # K3 on tickets of a 5.1 file's rows (8,192 samples, channel_sum after);
+    # groups of 2, 4 and 8, which take the kernel's run-time group
+    _rows_case("K3", 48000, 3, 6, 32, "padded"), _rows_case("K3", 44100, 3, 6, 1, "inside"),
+    _rows_case("K3", 48000, 3, 2, 4, "inside"), _rows_case("K3", 96000, 3, 1, 8, "boundary"),
+    _rows_case("K3", 88200, 3, 6, 2, "padded"),
 ])
 def test_rows_energy_kernels_match_plain(cuda, kernel, rate, b, ch, group, lengths):
     n = 1129 * 128 if kernel == "K5" else 512 * 128
     if lengths == "many":
         n = 16 * 2048 + 128
+    elif kernel == "K3" and lengths is not None:
+        n = 2600 * 128
     x = _noise((b, ch, n), rate + b).to(cuda)
     w = tuple(float(v) for v in channel_weights(ch))
     na = sum(1 for v in w if v != 0.0)
     seg = IIR.chain_segment(na) if na <= IIR.TRACK_CHANNELS else IIR.CHAIN_TILE
+    if kernel == "K3":
+        seg = IIR.k3_segment(ch) if ch <= IIR.K3_TRACK_CHANNELS else IIR.TP_TILE
     nv = torch.tensor(_k5_lengths(lengths, b, n, seg), device=cuda)
     filt = make_block_filter(kweight_cascade_ss(rate), 128, cuda)
     before = launches()
@@ -423,7 +446,7 @@ def test_rows_energy_kernels_match_plain(cuda, kernel, rate, b, ch, group, lengt
     assert launches()[kernel] == before[kernel] + 1
     assert got[0].shape == (b, n // group)
     _energy_close(got[0], want[0], (rate + 5) // 10, group)
-    if kernel == "K5":                    # nothing past n_valid, zeros exactly
+    if kernel == "K5" or lengths is not None:     # nothing past n_valid, zeros exactly
         past = torch.arange(n // group, device=cuda)[None] * group >= nv[:, None]
         assert bool((got[0][past] == 0).all())
     if kernel == "K3":
@@ -468,6 +491,55 @@ def test_k5_is_one_k5_tile_launch_and_counts_the_segments_it_skips(cuda):
     assert GLOBAL.counter("k5.segments") - k0 == 2 * b * nseg
     report = GLOBAL.report()["counters"]
     assert report["k5.segments_skipped"] >= skipped and report["k5.segments"] >= 2 * b * nseg
+
+
+def test_k3_launches_by_channel_count_and_counts_its_track_tickets(cuda):
+    """The profiler's device records: a stereo K3 call is one
+    `k3_tile_tracks` launch and `peaks_pass`, no `channel_sum`, and adds b
+    ceil(N / 4,096) to `k3.track_tickets`; a 5.1 call is `k3_tile_tracks`
+    on its rows, `channel_sum` and `peaks_pass`, and adds 0. Both add their
+    rows times segments of 8,192 to `k3.segments`, and neither launches
+    another kernel with `k3_tile` in its name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = 100 * 1024
+    filt = make_block_filter(kweight_cascade_ss(48000), 128, cuda)
+    calls = {}
+    for ch in (2, 6):
+        x = _noise((3, ch, n), 41 + ch).to(cuda)
+        nv = torch.tensor([n, n - 5000, n // 3], device=cuda)
+        w = tuple(float(v) for v in channel_weights(ch))
+        IIR.kweight_energy_tp_prefix(filt, x, nv, w, 48000, 32)     # builds
+        torch.cuda.synchronize()
+        t0, s0 = GLOBAL.counter("k3.track_tickets"), GLOBAL.counter("k3.segments")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pad = torch.zeros(1, device=cuda)         # the profiler's first records
+            for _ in range(64):
+                pad.add_(0.0)
+            torch.cuda.synchronize()
+            IIR.kweight_energy_tp_prefix(filt, x, nv, w, 48000, 32)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        calls[ch] = (sum("k3_tile_tracks" in m for m in names),
+                     sum("k3_tile" in m and "k3_tile_tracks" not in m for m in names),
+                     sum("channel_sum" in m for m in names), sum("peaks_pass" in m for m in names),
+                     GLOBAL.counter("k3.track_tickets") - t0, GLOBAL.counter("k3.segments") - s0)
+    nseg = -(-n // IIR.TP_TILE)
+    assert calls[2] == (1, 0, 0, 1, 3 * -(-n // 4096), 6 * nseg)
+    assert calls[6] == (1, 0, 1, 1, 0, 18 * nseg)
+    assert GLOBAL.report()["counters"]["k3.track_tickets"] >= 3 * -(-n // 4096)
+
+
+def test_k3_track_attributes(cuda):
+    """K3's one kernel, `k3_tile_tracks`, whichever ticket it takes: CTAs of
+    256 threads, 2 resident per SM, each buffer of its tile one row longer
+    than the core's (two channels' halo rows)."""
+    for factor in (4, 2):
+        attrs = IIR.rows_attributes(factor, IIR.LOOKBACK, tracks=True)
+        assert attrs["threads"] == IIR.TP_TILE // 32 and attrs["blocks_per_sm"] >= 2
+        assert attrs["dynamic_smem"] == 2 * 16 * 8 * (attrs["threads"] + 2)
+        assert attrs == IIR.rows_attributes(factor, IIR.LOOKBACK)
 
 
 @pytest.mark.parametrize("kernel,rate,group", [("K3", 48000, 32), ("K3", 44100, 1),

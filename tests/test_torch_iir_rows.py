@@ -209,3 +209,23 @@ def test_chain_segment_refuses_what_no_tile_takes():
     for channels in (0, *range(IIR.TRACK_CHANNELS + 1, iir_tile.MAX_CH + 1)):
         with pytest.raises(ValueError):
             IIR.chain_segment(channels)
+
+
+@pytest.mark.parametrize("channels", range(1, IIR.K3_TRACK_CHANNELS + 1))
+def test_k3_segment_fills_one_tile(channels):
+    """K3's track ticket holds `k3_segment(channels)` samples of each of a
+    track's one or two channels: whole warps of 32-sample threads, a power
+    of two, every channel within one tile of TP_TILE samples (the 256
+    threads of K3's CTA)."""
+    seg = IIR.k3_segment(channels)
+    lanes = seg // iir_tile.TS
+    assert seg % (32 * iir_tile.TS) == 0 and lanes & (lanes - 1) == 0
+    assert channels * seg == IIR.TP_TILE
+
+
+def test_k3_segment_refuses_what_no_tile_takes():
+    """Files of more channels take K3's tickets of a row: no segment."""
+    assert [IIR.k3_segment(c) for c in (1, 2)] == [8192, 4096]
+    for channels in (0, *range(IIR.K3_TRACK_CHANNELS + 1, iir_tile.MAX_CH + 1)):
+        with pytest.raises(ValueError):
+            IIR.k3_segment(channels)

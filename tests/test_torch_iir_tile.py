@@ -13,7 +13,10 @@ blocks, float32-sized partial sums per thread and the fixed-order step
 (K1) or group and channel (K3, K4, K5) sums. K5 with one or two
 weighted channels scans each channel's segment of its track tickets
 (`IIR.chain_segment` samples) with the powers of A as their 2x2 blocks
-and each lane's power in one step (`modal`). It is held to the JAX
+and each lane's power in one step (`modal`); K3 the same way, on
+segments of `IIR.k3_segment` samples of a mono or stereo file's channels
+or on rows of TP_TILE segments with more channels, with the look-back of
+LOOKBACK segments (`emulate_k3_tracks`). It is held to the JAX
 Pallas kernels in interpret mode and to the XLA chain at the port's pins
 (tests/test_torch_iir_chunked.py, tests/test_torch_iir_rows.py): sub-block
 sums rtol 3e-4 / atol 2e-5, z per group rtol 1e-3 / atol 1e-6 * max|z|,
@@ -206,18 +209,21 @@ def emulate_k1(filt, x, nv, weights, rate, h):
     return steps, tp, sp
 
 
-def emulate_k5(filt, x, nv, weights, group, T=None, D=0):
+def emulate_k5(filt, x, nv, weights, group, T=None, D=0, modal=None):
     """K5's z (b, n/group): x (b, ch, n) float32; with one or two weighted
     channels each on segments of IIR.chain_segment samples (track_scan's
     scan of a channel segment is tile_scan's of a row), else on rows of
     CHAIN_TILE segments; with T = CHAIN_TILE and D = LOOKBACK, K4's. K3's z
-    is the same sum at T = TP_TILE."""
+    is the same sum at T = k3_segment(ch), or TP_TILE on the rows of more
+    channels, with modal powers (emulate_k3_tracks). modal: the scan's as
+    track_scan's (by default where K5 takes track tickets)."""
     b, ch, n = x.shape
     na = sum(1 for w in weights if w != 0.0)
     tracks = T is None and na <= IIR.TRACK_CHANNELS
     if T is None:
         T = IIR.chain_segment(na) if tracks else IIR.CHAIN_TILE
-    y = emulate_tile(filt, x.reshape(b * ch, n), T, D, modal=tracks).reshape(b, ch, n)
+    modal = tracks if modal is None else modal
+    y = emulate_tile(filt, x.reshape(b * ch, n), T, D, modal=modal).reshape(b, ch, n)
     valid = np.arange(n)[None] < nv[:, None]
     z = np.zeros((b, n // group))
     for c, w in enumerate(weights):
@@ -227,13 +233,26 @@ def emulate_k5(filt, x, nv, weights, group, T=None, D=0):
     return z.astype(np.float32)
 
 
+def emulate_k3_tracks(filt, x, nv, weights, rate, group):
+    """K3's (z, tp, sp), x (b, ch, n) float32: each channel on segments of
+    IIR.k3_segment(ch) samples (4,096 stereo, 8,192 mono) or, with more
+    than K3_TRACK_CHANNELS channels, on rows of TP_TILE segments, with the
+    look-back of LOOKBACK segments, the scan's powers of A as their 2x2
+    blocks and each lane's A^(32 lane) in one step (k3_track_scan's scan of
+    a channel segment is tile_scan's of a row with track_scan's
+    arithmetic); group sums per channel in float32, added in channel
+    order; the peaks per row."""
+    b, ch, n = x.shape
+    T = IIR.k3_segment(ch) if ch <= IIR.K3_TRACK_CHANNELS else IIR.TP_TILE
+    z = emulate_k5(filt, x, nv, weights, group, T, IIR.LOOKBACK, modal=True)
+    return (z, *_peaks(x.reshape(b * ch, n), np.repeat(nv, ch), rate))
+
+
 def emulate_rows(kernel, filt, x, nv, weights, rate, group):
     """K3's (z, tp, sp) or K4's (z, None, None) on x (b, ch, n) float32."""
     if kernel == "K4":
         return emulate_k5(filt, x, nv, weights, group, IIR.CHAIN_TILE, IIR.LOOKBACK), None, None
-    b, ch, n = x.shape
-    z = emulate_k5(filt, x, nv, weights, group, IIR.TP_TILE, IIR.LOOKBACK)
-    return (z, *_peaks(x.reshape(b * ch, n), np.repeat(nv, ch), rate))
+    return emulate_k3_tracks(filt, x, nv, weights, rate, group)
 
 
 def _noise(shape, seed):
@@ -361,10 +380,13 @@ def _energy_pins(got, want, rate, group):
 
 
 # kernel, rate, b, ch, group: N = 28,928 leaves a partial last segment at
-# both tiles (K3's 8,192, K4's 4,096); ragged n_valid; 44.1 kHz groups of
-# 1; 5.1 with the zero-weight LFE (K3 still takes its peaks)
+# every tile (K3's 8,192 on rows and on mono tracks, 4,096 on stereo
+# tracks, K4's 4,096); ragged n_valid; 44.1 kHz groups of 1; 5.1 with the
+# zero-weight LFE (K3 on tickets of its rows, which still take its
+# peaks); mono and stereo at 96 kHz (factor 2) on K3's track tickets
 K3_K4_CASES = [("K3", 48000, 3, 2, 32), ("K3", 44100, 3, 2, 1), ("K3", 96000, 2, 6, 32),
-               ("K4", 48000, 3, 2, 32), ("K4", 44100, 3, 2, 1), ("K4", 192000, 2, 6, 32)]
+               ("K4", 48000, 3, 2, 32), ("K4", 44100, 3, 2, 1), ("K4", 192000, 2, 6, 32),
+               ("K3", 48000, 3, 1, 32), ("K3", 96000, 3, 2, 32), ("K3", 96000, 3, 1, 1)]
 
 
 @pytest.mark.parametrize("kernel,rate,b,ch,group", K3_K4_CASES)
@@ -445,6 +467,26 @@ def test_k5_channel_segments_reproduce_the_recurrence(channels):
         want[:, i] = s @ tf.Cv + tf.D * x[:, i]
         s = s @ tf.A.T + x[:, i, None] * tf.Bv
     np.testing.assert_allclose(emulate_tile(tf, x, T, modal=True), want, rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("channels", [1, 2])
+def test_k3_track_segments_reproduce_the_recurrence(channels):
+    """K3's scan on the channel segments of its track tickets (k3_segment:
+    8,192 and 4,096 samples, 8 and 4 warps), with the look-back of LOOKBACK
+    segments, its powers of A read as their 2x2 blocks and each lane's in
+    one step, is the serial filter over 34 segments and a partial one: from
+    segment 33 on the inclusive state LOOKBACK + 1 segments back enters."""
+    _, tf = _filters(48000)
+    T = IIR.k3_segment(channels)
+    assert T * channels == IIR.TP_TILE
+    x = _noise((2, 34 * T + 128), 17)
+    s = np.zeros((2, 4))
+    want = np.empty(x.shape)
+    for i in range(x.shape[1]):
+        want[:, i] = s @ tf.Cv + tf.D * x[:, i]
+        s = s @ tf.A.T + x[:, i, None] * tf.Bv
+    got = emulate_tile(tf, x, T, IIR.LOOKBACK, modal=True)
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
 
 
 @pytest.mark.parametrize("rate", [44100, 48000, 96000, 192000])
