@@ -1,21 +1,25 @@
 """How a traffic mix drives the program, named by the mix's `driver` key.
 
 * `batch`: a closed loop with two batches in flight. A device-resident batch
-  of `tracks` stereo tracks padded to `track_s` seconds (layout `frames`
-  (b, 2, N/128, 128) or `rows` (2b, N)) through the engine, with the pooled
-  spectrogram where `spectrogram` is true; each step ends in the host
-  copies of the per-track true and sample peaks, integrated loudness and
-  LRA, as the CLI reads them, which the host waits for once the next step
-  is queued. Where the mix gives `valid_s` [lo, hi], the
-  tracks' valid lengths are whole seconds spread evenly from lo to hi, in
-  an order drawn from the seed (the same work for every seed), and the
-  padding behind them holds signal that no result may see; otherwise every
-  track is valid to its end. The spectrogram takes no valid length: it
+  of `tracks` tracks of the configuration's `channels` padded to `track_s`
+  seconds (layout `frames` (b, ch, N/128, 128) or `rows` (ch * b, N))
+  through the engine, with the pooled mid/side spectrogram where
+  `spectrogram` is true (stereo only: another channel count with it is a
+  ValueError); each step ends in the host copies of the per-track true
+  and sample peaks, integrated loudness and LRA, as the CLI reads them,
+  which the host waits for once the next step is queued. Where the mix
+  gives `valid_s` [lo, hi], the tracks' valid lengths are whole seconds
+  spread evenly from lo to hi, in an order drawn from the seed (the same
+  work for every seed), and the padding behind them holds signal that no
+  result may see; otherwise every track is valid to its end. The spectrogram takes no valid length: it
   covers the whole track. Metric: audio_s_per_s, of the valid audio.
 
 The driver warms up the shapes of its traffic, measures for `seconds`,
 then, once the window has closed and the memory peak has been read,
-compares what the timed path produced with the float64 reference.
+compares what the timed path produced with the float64 reference. It
+prints the set-up's parts to stderr: process start to the driver's entry,
+the CUDA context, the program's import, the traffic's generation and the
+warm-up.
 """
 
 from __future__ import annotations
@@ -145,15 +149,24 @@ def valid_lengths(tr: dict, b: int, n: int, rate: int, seed: int) -> list[int]:
 
 
 def batch(ctx: Ctx) -> Run:
+    t_entry = time.perf_counter()
     cfg, tr, dev, sysm = ctx.config, ctx.traffic, ctx.device, ctx.system
-    rate, b = cfg["rate"], tr["tracks"]
+    rate, b, ch = cfg["rate"], tr["tracks"], cfg["channels"]
+    if tr["spectrogram"] and ch != 2:
+        raise ValueError(f"the traffic asks for the mid/side spectrogram, which needs 2 "
+                         f"channels; the configuration has {ch}")
     unit = 2048 if tr["layout"] == "frames" else 128
     n = int(tr["track_s"] * rate) // unit * unit
+    sync(dev)
+    t_context = time.perf_counter()
     mc = sysm.meter_config(cfg)
-    x = generator.tracks(ctx.seed, b, n, rate, tr["signal"], dev)
-    x_in = x.view(b, 2, n // 128, 128) if tr["layout"] == "frames" else x.view(2 * b, n)
+    t_import = time.perf_counter()
+    x = generator.tracks(ctx.seed, b, n, rate, tr["signal"], dev, channels=ch)
+    x_in = x.view(b, ch, n // 128, 128) if tr["layout"] == "frames" else x.view(ch * b, n)
     lengths = valid_lengths(tr, b, n, rate, ctx.seed)
     nv = torch.as_tensor(lengths, dtype=torch.int64, device=dev)
+    sync(dev)
+    t_traffic = time.perf_counter()
     spans = trace.Spans()
     rng = np.random.default_rng(ctx.seed)
     idx = (np.arange(b) if tr.get("check_tracks") is None
@@ -190,13 +203,17 @@ def batch(ctx: Ctx) -> Run:
         if queued is not None:
             finish(queued)
         queued = nxt
-    finish(queued)
+    if queued is not None:
+        finish(queued)
     sync(dev)
     spans.ms.clear()
     scan_ms.clear()
     loop = Loop(ctx, spans)
     t0 = time.perf_counter()
     setup_s = t0 - ctx.t_start
+    log(f"set-up {setup_s:.4f} s: entry {t_entry - ctx.t_start:.4f}, cuda context "
+        f"{t_context - t_entry:.4f}, program import {t_import - t_context:.4f}, traffic "
+        f"{t_traffic - t_import:.4f}, warm-up {t0 - t_traffic:.4f}")
     keep = generator.Reservoir(tr["check_steps"], ctx.seed)
     host_all, failures = [], []
 
@@ -234,7 +251,7 @@ def batch(ctx: Ctx) -> Run:
     sampled = keep.items
     gc.collect()
     t_ref = time.perf_counter()
-    x3 = x.view(b, 2, n)
+    x3 = x.view(b, ch, n)
     refs = bs1770.analyze(x3[torch.as_tensor(idx, device=dev)], [lengths[i] for i in idx], rate)
     if host_all:        # every step's host copies at once: (steps, tracks[, ch])
         got = dict(zip(("true_peak", "sample_peak", "integrated", "lra"),

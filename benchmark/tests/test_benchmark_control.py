@@ -79,3 +79,15 @@ FAULTS = [(cell, fault) for cell in TINY for fault in (HalfBatch, Unmasked, Alte
 def test_fault_is_not_correct(cell, fault):
     line = run(cell, fault())
     assert not line["correct"], line["checks"]
+
+
+def test_control_runs_with_no_warmup_step():
+    """calibrate.py runs the control with no warm-up step: the driver then
+    finishes nothing before the window and the run completes."""
+    cell = "offline.library_rows"
+    over = {k: dict(v) for k, v in TINY[cell].items()}
+    over["traffic"]["warmup_steps"] = 0
+    line = harness.execute(cell, SEED, 0.3, False, "cpu", time.perf_counter(),
+                           system=systems.Control(), overrides=over)
+    assert line["attempted"] >= 1 and line["failed"] == 0
+    assert not line["correct"], line["checks"]

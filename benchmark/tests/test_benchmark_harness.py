@@ -6,6 +6,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 import pytest
 import torch
@@ -131,3 +132,26 @@ def test_run_exits_without_a_card():
                         "--trace", "0"], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert p.returncode != 0
     assert p.stdout == ""
+
+
+@pytest.mark.parametrize("missing", ["mark", "span", "both"])
+def test_an_empty_trace_reading_says_what_is_missing(missing, capsys):
+    from benchmark import trace
+
+    def event(name, device):
+        return types.SimpleNamespace(
+            name=name, time_range=types.SimpleNamespace(start=0.0, end=1.0),
+            device_type=(torch.autograd.DeviceType.CUDA if device
+                         else torch.autograd.DeviceType.CPU))
+
+    events = [event("k5_tile_tracks", True)]
+    if missing == "span":
+        events.append(event("void spin_kernel(long)", True))
+    if missing == "mark":
+        events.append(event(trace.WINDOW_SPAN, False))
+    stretch = trace.Stretch(trace.Spans())
+    stretch._prof = types.SimpleNamespace(events=lambda: events)
+    assert stretch.reading({}) is None
+    err = capsys.readouterr().err
+    assert ("spin_kernel mark" in err) == (missing != "span")
+    assert (f"{trace.WINDOW_SPAN} span" in err) == (missing != "mark")

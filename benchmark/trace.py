@@ -11,7 +11,8 @@ device_profile does (copied, with its reasoning): the profiler may drop a
 session's first device records, so 64 one-element kernels take their place
 and only device work after the spin kernel that follows them counts. Its
 `reading()` gives the device intervals, the host spans and the stretch's
-own interval on the profiler's clock.
+own interval on the profiler's clock, or None, saying on stderr which of
+the spin kernel and the stretch's span the trace lacks.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import collections
 import contextlib
 import dataclasses
 import statistics
+import sys
 import time
 
 import torch
@@ -185,6 +187,11 @@ class Stretch:
         marks = [b for _, b, name in dev if "spin_kernel" in name]
         win = [s for s in host if s[2] == WINDOW_SPAN]
         if not marks or not win:
+            missing = [what for what, found in (("the spin_kernel mark", marks),
+                                                (f"the {WINDOW_SPAN} span", win)) if not found]
+            print(f"trace: the stretch reads nothing: {' and '.join(missing)} missing from "
+                  f"the profiler's {len(dev)} device and {len(host)} host events",
+                  file=sys.stderr, flush=True)
             return None
         dev = [s for s in dev if s[0] >= marks[-1]]
         host.sort()
